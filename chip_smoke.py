@@ -7,16 +7,20 @@ Phases (any failure exits non-zero):
   1. environment: the card's name and power limit, torch / CUDA / nvcc
      versions, and the kernels' build time;
   2. each hand-written kernel (K1 histogram, K2 uniform walk, K3 masked walk
-     in its plain2 and Huffman variants) against its plain PyTorch version
-     on the card, at the shapes of one default 8 MiB sub-block; results must
-     be exactly equal; times are CUDA-event medians;
+     in its plain2, Huffman and per-position-tree quality variants, K4 code
+     lookup) against its plain PyTorch version on the card, on the inputs
+     the pipeline gives it for one default 8 MiB sub-block (36 bp, 100 bp
+     variable-length and 1000 bp reads); results must be exactly equal;
+     times are CUDA-event medians;
   3. the main path: compress_bytes -> decompress_bytes with device="cuda" on
-     --mb MB of synthetic ERR005195 36 bp reads (plus a smaller SRR-style
-     76 bp corpus whose DNA stream is Huffman-coded), byte-identical, with
-     every kernel launched and no plain version run on a CUDA tensor;
-  4. the committed golden containers tiny_v1 / tiny_v2 / titles_v3 decode to
-     their inputs, and the titles_v3 input re-encodes to phyngsc_tpu's bytes
-     (by SHA-256).
+     --mb MB of synthetic ERR005195 36 bp reads, an SRR-style 76 bp corpus
+     whose DNA stream is Huffman-coded, variable-length 100 bp reads,
+     1000 bp reads and SOLiD colour-space reads, each byte-identical, with
+     every kernel variant launched and no plain version run on a CUDA
+     tensor;
+  4. the committed golden containers tiny_v1 / tiny_v2 / titles_v3 /
+     longread_v4 decode to their inputs, and the titles_v3 input re-encodes
+     to phyngsc_tpu's bytes (by SHA-256).
 The last line is {"ok": true, "device": {...}}; the line before it lists the
 kernels with their launch counts, errors and times.
 """
@@ -40,7 +44,7 @@ import torch  # noqa: E402
 from phyngsc_tpu_torch import (CodecConfig, host_runtime, kernels,  # noqa: E402
                                synthesize_fastq)
 from phyngsc_tpu_torch.models import dna, quality  # noqa: E402
-from phyngsc_tpu_torch.ops import bitpack, histogram  # noqa: E402
+from phyngsc_tpu_torch.ops import bitpack, histogram, lookup  # noqa: E402
 from phyngsc_tpu_torch.pipeline import compress, subblock  # noqa: E402
 from phyngsc_tpu_torch.pipeline.decompress import decompress_bytes  # noqa: E402
 
@@ -63,6 +67,8 @@ KERNELS = {
                         "phyngsc_tpu/ops/bitpack.py:572"),
     "k3_walk_masked": ("phyngsc_tpu_torch/csrc/walk.cu",
                        "phyngsc_tpu/ops/bitpack.py:698"),
+    "k4_lookup": ("phyngsc_tpu_torch/csrc/lookup.cu",
+                  "phyngsc_tpu/ops/lookup.py:214"),
 }
 
 
@@ -97,6 +103,25 @@ def srr_huffman_corpus(n: int, seed: int) -> bytes:
     return b"\n".join(lines)
 
 
+def solid_corpus(n: int, seed: int) -> bytes:
+    """SOLiD colour-space reads of 50 characters: a nucleotide, then '0'-'3'
+    colours (the sub-blocks take the delta translation)."""
+    rng = np.random.default_rng(seed)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    seq = (rng.integers(0, 4, size=(n, 50)) + ord("0")).astype(np.uint8)
+    seq[:, 0] = acgt[rng.integers(0, 4, size=n)]
+    qual = rng.integers(33, 64, size=(n, 50)).astype(np.uint8)
+    return b"".join(b"@solid.%d\n%s\n+\n%s\n" % (i, seq[i].tobytes(),
+                                                   qual[i].tobytes())
+                    for i in range(n))
+
+
+def corpus_of(mb: float, build) -> bytes:
+    """build(n) scaled to about mb MB."""
+    per_rec = len(build(1000)) / 1000
+    return build(int(mb * 1e6 / per_rec))
+
+
 def titles_input() -> bytes:
     """The titles_v3 golden's input (tests/test_format_stability.py)."""
     rng = np.random.default_rng(4242)
@@ -114,15 +139,42 @@ def titles_input() -> bytes:
     return bytes(out)
 
 
-def first_subblock(data: bytes, cfg: CodecConfig, dev):
-    """Stage A of the first default sub-block of `data`, its payload and
-    its parse: the main path's shapes."""
-    buf = np.frombuffer(data, np.uint8)
-    regions = compress.partition_regions(buf, 1, cfg)
-    _, idx = next(compress.iter_subblock_tasks(buf, regions, cfg))
-    a = subblock.stage_a(buf, idx, cfg, dev)
-    payload = subblock.stage_c(subblock.stage_b(a, cfg), cfg)
-    return a, subblock._decode_parse(payload, cfg)
+class FirstSubblock:
+    """The first sub-block of `data` as compress_bytes cuts it (after
+    resolve_substream): stage A's device planes, the K4 lookups that stage B
+    made (symbols and tables, recorded as the kernel was called) and the
+    parse of the payload. These are the main path's kernel inputs."""
+
+    def __init__(self, data: bytes, dev):
+        buf = np.frombuffer(data, np.uint8)
+        self.cfg = compress.resolve_substream(buf, CodecConfig())
+        self.G = self.cfg.records_per_substream
+        regions = compress.partition_regions(buf, 1, self.cfg)
+        _, idx = next(compress.iter_subblock_tasks(buf, regions, self.cfg))
+        self.a = subblock.stage_a(buf, idx, self.cfg, dev)
+        self.lookups = []
+        launch = kernels.lookup
+
+        def record(sym, tab):
+            self.lookups.append((sym.clone(), tab.clone()))
+            return launch(sym, tab)
+
+        kernels.lookup = record
+        try:
+            b = subblock.stage_b(self.a, self.cfg)
+        finally:
+            kernels.lookup = launch
+        self.p = subblock._decode_parse(subblock.stage_c(b, self.cfg),
+                                        self.cfg)
+        self.lens = subblock._record_lens(self.p.lens_np, self.p.Rp, dev)
+
+    def describe(self, what: str) -> None:
+        p = self.p
+        print(f"{what} sub-block: R={p.R} Rp={p.Rp} Lt={p.Lt} L={p.L} "
+              f"G={self.G} S={p.Rp // self.G} variable={p.variable} "
+              f"delta={p.is_delta} quality trees={p.q_tables.n_trees} "
+              f"dna mode={p.d_plan.mode} lookups="
+              f"{[tuple(t.shape) for _, t in self.lookups]}", flush=True)
 
 
 def compare(name: str, kernel_fn, plain_fn, reps: int, plain_reps: int):
@@ -141,76 +193,119 @@ def compare(name: str, kernel_fn, plain_fn, reps: int, plain_reps: int):
 
 
 def phase_kernels(dev) -> dict:
-    cfg = CodecConfig()
-    G = cfg.records_per_substream
-    bits = cfg.max_code_len
+    bits = CodecConfig().max_code_len
     cases = {k: [] for k in KERNELS}
 
-    def lens_of(p):
-        return subblock._uniform_lens(p.R, p.Rp, p.Lt, dev)
+    def k1(name, sym, mask, A):
+        mask = mask.to(torch.uint8).contiguous()
+        cases["k1_histogram"].append(compare(
+            name, lambda: kernels.histogram(sym, mask, A),
+            lambda: histogram.position_histogram_plain(sym, mask, A), 20, 5))
 
-    err = synthesize_fastq(70000, read_len=36, seed=1)
-    a, p = first_subblock(err, cfg, dev)
-    print(f"main-path sub-block: R={a.R} Rp={a.Rp} L={a.L} S={a.Rp // G} "
-          f"quality trees={p.q_tables.n_trees} dna mode={p.d_plan.mode}",
-          flush=True)
-    valid8 = quality.valid_mask(a.lens, a.L).to(torch.uint8).contiguous()
-    keep8 = a.keep.to(torch.uint8).contiguous()
-    cases["k1_histogram"].append(compare(
-        "k1 quality A=256",
-        lambda: kernels.histogram(a.qual_t, valid8, 256),
-        lambda: histogram.position_histogram_plain(a.qual_t, valid8, 256),
-        20, 5))
-    cases["k1_histogram"].append(compare(
-        "k1 dna keep A=128",
-        lambda: kernels.histogram(a.seq, keep8, 128),
-        lambda: histogram.position_histogram_plain(a.seq, keep8, 128),
-        20, 5))
+    def k2(name, f):
+        p, G = f.p, f.G
+        S = p.q_sub.shape[0]
+        q_words = subblock._upload_words(p.q_words, dev)
+        q_sub = torch.from_numpy(p.q_sub).to(dev)
+        q_start = bitpack.word_starts(q_sub)
+        totals = f.lens.reshape(S, G).sum(dim=1, dtype=torch.int32)
+        luts = torch.from_numpy(p.q_tables.luts(bits)).to(dev)
+        tid = quality.tree_of_position(torch.arange(p.Lt, device=dev),
+                                       p.q_tables.n_trees, p.L).to(torch.int32)
+        cases["k2_walk_uniform"].append(compare(
+            name,
+            lambda: kernels.walk_uniform(q_words, q_start, totals, luts, tid,
+                                         bits, G, p.Lt, p.L),
+            lambda: bitpack.walk_uniform_plain(q_words, q_sub, totals, luts,
+                                               tid, bits, G, p.Lt, p.L),
+            20, 3))
 
-    S = p.q_sub.shape[0]
-    q_words = subblock._upload_words(p.q_words, dev)
-    q_sub = torch.from_numpy(p.q_sub).to(dev)
-    q_start = bitpack.word_starts(q_sub)
-    totals = lens_of(p).reshape(S, G).sum(dim=1, dtype=torch.int32)
-    luts = torch.from_numpy(p.q_tables.luts(bits)).to(dev)
-    tid = quality.tree_of_position(torch.arange(p.Lt, device=dev),
-                                   p.q_tables.n_trees, p.L).to(torch.int32)
-    cases["k2_walk_uniform"].append(compare(
-        "k2 quality walk",
-        lambda: kernels.walk_uniform(q_words, q_start, totals, luts, tid,
-                                     bits, G, p.Lt, p.L),
-        lambda: bitpack.walk_uniform_plain(q_words, q_sub, totals, luts, tid,
-                                           bits, G, p.Lt, p.L),
-        20, 3))
-
-    def masked_case(name, p, plain2):
-        qual_t = quality.decode_walk(
-            subblock._upload_words(p.q_words, dev),
-            torch.from_numpy(p.q_sub).to(dev), lens_of(p),
-            torch.from_numpy(p.q_tables.luts(bits)).to(dev), p.L, p.Lt, G,
-            bits)
-        keep = ((qual_t < 128) & quality.valid_mask(lens_of(p), p.L)).to(
-            torch.uint8).reshape(p.d_sub.shape[0], -1).contiguous()
-        words = subblock._upload_words(p.d_words, dev)
-        sub = torch.from_numpy(p.d_sub).to(dev)
+    def k3(name, f, variant):
+        """variant: plain2 / huffman (DNA, after the quality decode) or
+        quality (variable-length quality, per-position trees)."""
+        p, G = f.p, f.G
+        S = p.q_sub.shape[0]
+        q_words = subblock._upload_words(p.q_words, dev)
+        q_sub = torch.from_numpy(p.q_sub).to(dev)
+        q_luts = torch.from_numpy(p.q_tables.luts(bits)).to(dev)
+        valid = quality.valid_mask(f.lens, p.L)
+        if variant == "quality":
+            words, sub, keep, luts = q_words, q_sub, valid, q_luts
+            tid = quality.tree_of_position(torch.arange(p.L, device=dev),
+                                           p.q_tables.n_trees, p.L).to(
+                                               torch.int32)
+        else:
+            if p.variable:
+                qual_t = quality.decode_walk_masked(q_words, q_sub, f.lens,
+                                                    q_luts, p.L, G, bits)
+            else:
+                qual_t = quality.decode_walk(q_words, q_sub, f.lens, q_luts,
+                                             p.L, p.Lt, G, bits)
+            keep = (qual_t < 128) & valid
+            words = subblock._upload_words(p.d_words, dev)
+            sub = torch.from_numpy(p.d_sub).to(dev)
+            luts = (None if variant == "plain2" else
+                    torch.from_numpy(p.d_plan.luts(bits)).to(dev))
+            tid = (None if variant == "plain2" else
+                   torch.zeros(1, dtype=torch.int32, device=dev))
+        keep = keep.to(torch.uint8).reshape(S, -1).contiguous()
         start = bitpack.word_starts(sub)
         tot = keep.sum(dim=1, dtype=torch.int32)
-        lut = None if plain2 else torch.from_numpy(p.d_plan.luts(bits)[0]).to(dev)
-        return compare(
+        plain2 = variant == "plain2"
+        cases["k3_walk_masked"].append(compare(
             name,
-            lambda: kernels.walk_masked(words, start, tot, keep, lut, bits,
-                                        plain2),
-            lambda: bitpack.walk_masked_plain(words, sub, keep, lut, bits,
-                                              plain2),
-            20, 3)
+            lambda: kernels.walk_masked(words, start, tot, keep, luts, tid,
+                                        bits, plain2),
+            lambda: bitpack.walk_masked_plain(words, sub, keep, luts, tid,
+                                              bits, plain2),
+            20, 3))
 
-    require(p.d_plan.mode == dna.MODE_PLAIN, "ERR005195 DNA plan is not plain")
-    cases["k3_walk_masked"].append(masked_case("k3 dna plain2", p, True))
+    def k4(name, sym, tab):
+        cases["k4_lookup"].append(compare(
+            name, lambda: kernels.lookup(sym, tab),
+            lambda: lookup.fused_lookup_plain(sym, tab), 20, 5))
 
-    _, ph = first_subblock(srr_huffman_corpus(40000, seed=2), cfg, dev)
-    require(ph.d_plan.mode == dna.MODE_HUFFMAN,
+    err = FirstSubblock(synthesize_fastq(70000, read_len=36, seed=1), dev)
+    err.describe("ERR005195 36 bp")
+    a = err.a
+    k1("k1 quality A=256", a.qual_t, quality.valid_mask(a.lens, a.L), 256)
+    k1("k1 dna keep A=128", a.seq, a.keep, 128)
+    k2("k2 quality walk", err)
+    require(err.p.d_plan.mode == dna.MODE_PLAIN,
+            "ERR005195 DNA plan is not plain")
+    k3("k3 dna plain2", err, "plain2")
+    require(len(err.lookups) == 1 and err.lookups[0][1].shape[1] == 256,
+            "ERR005195 quality lookup is not one A=256 table")
+    k4("k4 quality A=256", *err.lookups[0])
+
+    clean = FirstSubblock(synthesize_fastq(70000, read_len=36, seed=1,
+                                           ambiguity_rate=0.0), dev)
+    require(clean.lookups[0][1].shape[1] == 64,
+            "quality window of ERR005195 without IUPAC is not A=64")
+    k4("k4 quality A=64", *clean.lookups[0])
+
+    srr = FirstSubblock(srr_huffman_corpus(40000, seed=2), dev)
+    srr.describe("SRR-style 76 bp")
+    require(srr.p.d_plan.mode == dna.MODE_HUFFMAN and len(srr.lookups) == 2,
             "SRR corpus with high-quality N did not take DNA Huffman mode")
-    cases["k3_walk_masked"].append(masked_case("k3 dna huffman", ph, False))
+    k3("k3 dna huffman", srr, "huffman")
+    k4(f"k4 dna huffman A={srr.lookups[1][1].shape[1]}", *srr.lookups[1])
+
+    var = FirstSubblock(synthesize_fastq(40000, read_len=100, seed=3,
+                                         variable_length=True), dev)
+    var.describe("variable-length 100 bp")
+    require(var.p.variable and var.p.q_tables.n_trees > 1,
+            "variable-length sub-block without several quality trees")
+    k3("k3 quality variable-length", var, "quality")
+
+    long_ = FirstSubblock(synthesize_fastq(5000, read_len=1000, seed=4), dev)
+    long_.describe("1000 bp")
+    a = long_.a
+    require(a.L == 1000, "1000 bp sub-block is not L = 1000")
+    k1("k1 quality L=1000", a.qual_t, quality.valid_mask(a.lens, a.L), 256)
+    k2("k2 quality walk L=1000", long_)
+    k4(f"k4 quality L=1000 A={long_.lookups[0][1].shape[1]}",
+       *long_.lookups[0])
     return cases
 
 
@@ -232,12 +327,20 @@ def round_trip(data: bytes, dev, what: str) -> None:
 
 
 def phase_round_trip(dev, mb: int) -> dict:
-    per_rec = len(synthesize_fastq(1000, read_len=36, seed=5)) / 1000
-    data = synthesize_fastq(int(mb * 1e6 / per_rec), read_len=36, seed=5)
-    srr = srr_huffman_corpus(int(mb * 1e6 / 8 / 200), seed=6)
+    corpora = [
+        (f"ERR005195 36 bp {mb} MB", corpus_of(
+            mb, lambda n: synthesize_fastq(n, read_len=36, seed=5))),
+        ("SRR-style 76 bp (DNA Huffman)",
+         srr_huffman_corpus(int(mb * 1e6 / 8 / 200), seed=6)),
+        ("variable-length 100 bp", corpus_of(64, lambda n: synthesize_fastq(
+            n, read_len=100, seed=7, variable_length=True))),
+        ("1000 bp", corpus_of(64, lambda n: synthesize_fastq(
+            n, read_len=1000, seed=8))),
+        ("SOLiD colour space 50", corpus_of(16, lambda n: solid_corpus(n, 9))),
+    ]
     kernels.reset_counts()
-    round_trip(data, dev, f"ERR005195 36 bp {mb} MB")
-    round_trip(srr, dev, "SRR-style 76 bp (DNA Huffman)")
+    for what, data in corpora:
+        round_trip(data, dev, what)
     launches = dict(kernels.LAUNCHES)
     plain = dict(kernels.PLAIN_ON_CUDA)
     print(f"main-path launches: {json.dumps(launches)}", flush=True)
@@ -253,7 +356,9 @@ def phase_round_trip(dev, mb: int) -> dict:
 def phase_goldens(dev) -> None:
     inputs = {"tiny_v1.ngsct": synthesize_fastq(300, read_len=36, seed=99),
               "tiny_v2.ngsct": synthesize_fastq(300, read_len=36, seed=99),
-              "titles_v3.ngsct": titles_input()}
+              "titles_v3.ngsct": titles_input(),
+              "longread_v4.ngsct": synthesize_fastq(
+                  220, read_len=1000, seed=77, ambiguity_rate=0.005)}
     for name, want in inputs.items():
         with open(os.path.join(GOLDEN_DIR, name), "rb") as f:
             blob = f.read()

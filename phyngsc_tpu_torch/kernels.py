@@ -29,8 +29,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
 LAUNCHES = {"k1_histogram": 0, "k2_walk_uniform": 0, "k3_walk_masked": 0,
-            "k3_walk_masked/plain2": 0, "k3_walk_masked/huffman": 0}
-PLAIN_ON_CUDA = {"k1_histogram": 0, "k2_walk_uniform": 0, "k3_walk_masked": 0}
+            "k3_walk_masked/plain2": 0, "k3_walk_masked/huffman": 0,
+            "k3_walk_masked/quality": 0, "k4_lookup": 0}
+PLAIN_ON_CUDA = {"k1_histogram": 0, "k2_walk_uniform": 0, "k3_walk_masked": 0,
+                 "k4_lookup": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -42,7 +44,9 @@ _SIGNATURES = {
     "phyngsc_hist": [_P, _P, _I64, _I, _I, _P, _P],
     "phyngsc_walk_uniform": [_P, _I64, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                              _P, _P],
-    "phyngsc_walk_masked": [_P, _I64, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+    "phyngsc_walk_masked": [_P, _I64, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                            _I, _P, _P],
+    "phyngsc_lookup": [_P, _P, _I64, _I, _I, _P, _P],
 }
 
 
@@ -182,31 +186,57 @@ def walk_uniform(words: torch.Tensor, word_start: torch.Tensor,
 
 
 def walk_masked(words: torch.Tensor, word_start: torch.Tensor,
-                totals: torch.Tensor, keep: torch.Tensor, lut, lut_bits: int,
-                plain2: bool) -> torch.Tensor:
+                totals: torch.Tensor, keep: torch.Tensor, luts, tree_of_pos,
+                lut_bits: int, plain2: bool) -> torch.Tensor:
     """K3: masked walk over (S, T) slots -> (S, T) uint8 symbols (0 where
-    keep is unset). lut is the (2^lut_bits,) int32 table, or None for
-    plain2."""
+    keep is unset). Slot t takes tree tree_of_pos[t % L] of the
+    (n_trees, 2^lut_bits) int32 luts, L = len(tree_of_pos) dividing T; both
+    are None for plain2. Counted as the plain2, huffman (one position, the
+    DNA stream) or quality (per-position trees) variant."""
     _check_walk(words, word_start, lut_bits)
     _require(totals, "totals", torch.int32)
     _require(keep, "keep", torch.uint8)
     S = word_start.shape[0]
     if keep.ndim != 2 or keep.shape[0] != S or totals.shape != (S,):
         raise ValueError("walk_masked: bad shapes")
-    if not plain2:
-        _require(lut, "lut", torch.int32)
-        if lut.shape != (1 << lut_bits,):
-            raise ValueError("walk_masked: bad LUT shape")
     T = keep.shape[1]
+    n_trees, L = 1, 1
+    if not plain2:
+        _require(luts, "luts", torch.int32)
+        _require(tree_of_pos, "tree_of_pos", torch.int32)
+        n_trees, L = luts.shape[0], tree_of_pos.shape[0]
+        if (luts.ndim != 2 or luts.shape[1] != 1 << lut_bits or n_trees < 1
+                or tree_of_pos.ndim != 1 or L < 1 or T % L):
+            raise ValueError("walk_masked: bad LUT or tree shapes")
     out = torch.zeros((S, T), dtype=torch.uint8, device=words.device)
     if S == 0:
         return out
     rc = build().phyngsc_walk_masked(
         words.data_ptr(), words.shape[0], word_start.data_ptr(),
         totals.data_ptr(), keep.data_ptr(),
-        None if plain2 else lut.data_ptr(), int(plain2), lut_bits, S, T,
-        out.data_ptr(), _stream())
+        None if plain2 else luts.data_ptr(),
+        None if plain2 else tree_of_pos.data_ptr(), n_trees, int(plain2),
+        lut_bits, S, T, L, out.data_ptr(), _stream())
     _check(rc, "k3_walk_masked")
-    _count(LAUNCHES, "k3_walk_masked",
-           "k3_walk_masked/plain2" if plain2 else "k3_walk_masked/huffman")
+    variant = "plain2" if plain2 else "huffman" if L == 1 else "quality"
+    _count(LAUNCHES, "k3_walk_masked", f"k3_walk_masked/{variant}")
+    return out
+
+
+def lookup(sym: torch.Tensor, tab: torch.Tensor) -> torch.Tensor:
+    """K4: (R, L) uint8 symbols, (L, A) int32 table -> (R, L) int32,
+    out[r, p] = tab[p, sym[r, p]], 0 where sym[r, p] >= A."""
+    _require(sym, "symbols", torch.uint8)
+    _require(tab, "table", torch.int32)
+    R, L = sym.shape
+    if tab.ndim != 2 or tab.shape[0] != L or not 1 <= tab.shape[1] <= 256:
+        raise ValueError(f"lookup: bad shapes {tuple(sym.shape)} "
+                         f"{tuple(tab.shape)}")
+    out = torch.empty((R, L), dtype=torch.int32, device=sym.device)
+    if R == 0 or L == 0:
+        return out
+    rc = build().phyngsc_lookup(sym.data_ptr(), tab.data_ptr(), R, L,
+                                tab.shape[1], out.data_ptr(), _stream())
+    _check(rc, "k4_lookup")
+    _count(LAUNCHES, "k4_lookup")
     return out

@@ -1,10 +1,10 @@
-"""DNA stream codec: ambiguity transfer + 2-bit/Huffman coding (port of
-phyngsc_tpu/models/dna.py, without the SOLiD delta translation, which is a
-later slice).
+"""DNA stream codec: ambiguity transfer, SOLiD colour-space delta
+translation and 2-bit/Huffman coding (port of phyngsc_tpu/models/dna.py).
 
-analyze runs on K1 (ops/histogram.py); decode_plain_walk and
-decode_huffman_walk run on K3 (ops/bitpack.py). Mode planning, delta
-detection and the stream header are host code.
+analyze runs on K1 (ops/histogram.py); the Huffman encode's code lookup on
+K4 (ops/lookup.py); decode_plain_walk and decode_huffman_walk on K3
+(ops/bitpack.py). Mode planning, delta detection and the stream header are
+host code.
 """
 
 from __future__ import annotations
@@ -23,8 +23,8 @@ from phyngsc_tpu_torch.ops import bitpack, histogram, lookup
 ALPHABET = 256
 
 # The tables, detect_delta, DnaPlan, plan, write_header and read_header are
-# copied from phyngsc_tpu/models/dna.py (host code); deduplicated once the
-# JAX package splits its host code out.
+# copied from phyngsc_tpu/models/dna.py (host code in a module that imports
+# jax).
 
 # trans_amb_codes equivalent (phyNGSC.cpp:184-206): ACGT → 1, IUPAC → 2..16.
 AMB_CODE = np.zeros(256, dtype=np.uint8)
@@ -39,6 +39,9 @@ for _s in range(256):
         AMB_CHAR[AMB_CODE[_s]] = _s
 
 ACGT = np.frombuffer(b"ACGT", dtype=np.uint8)
+NUC_INDEX = np.full(256, -1, dtype=np.int32)
+for _i, _c in enumerate(b"ACGT"):
+    NUC_INDEX[_c] = _i
 
 MODE_PLAIN = 0
 MODE_HUFFMAN = 1
@@ -108,6 +111,42 @@ def detect_delta(seq_np: np.ndarray, lens_np: np.ndarray) -> bool:
     return bool(np.all(heads_ok) and np.all(colors_ok))
 
 
+def _prefix_xor2(d: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix XOR along dim 1 of 2-bit values, bit by bit: the
+    parity of a running count."""
+    b0 = torch.cumsum(d & 1, dim=1) & 1
+    b1 = torch.cumsum((d >> 1) & 1, dim=1) & 1
+    return b0 | (b1 << 1)
+
+
+def delta_translate(seq: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
+    """Colour digits -> nucleotides: out[:, 0] = seq[:, 0] and out[:, n] =
+    DELTA_NEXT[out[:, n-1], d_n] (phyngsc_tpu/models/dna.py:67-78, the
+    matrices of phyNGSC.cpp:497-502). The JAX package scans over positions;
+    DELTA_NEXT[a, d] is a ^ d, so nucleotide n is the head's index XOR the
+    prefix XOR of the digits, in whole-plane tensor ops. A non-ACGT head
+    (only in rows the valid mask zeroes) indexes as 3, as the JAX gather
+    wraps -1."""
+    L = seq.shape[1]
+    s = seq.long()
+    start = _table(NUC_INDEX, seq.device)[s[:, 0]] & 3
+    digits = (s[:, 1:] - ord("0")).clamp(0, 3)
+    nucs = start[:, None] ^ _prefix_xor2(digits)
+    out = torch.cat([s[:, :1], _table(ACGT, seq.device)[nucs]], dim=1)
+    return torch.where(valid_mask(lens, L), out, 0).to(torch.uint8)
+
+
+def delta_untranslate(seq: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
+    """Nucleotides -> colour digits, the exact inverse of delta_translate:
+    colour n = DELTA_COLOR[nuc n-1, nuc n], which is their XOR."""
+    L = seq.shape[1]
+    s = seq.long()
+    idx = _table(NUC_INDEX, seq.device)[s].clamp(0, 3)
+    colors = (idx[:, :-1] ^ idx[:, 1:]) + ord("0")
+    out = torch.cat([s[:, :1], colors], dim=1)
+    return torch.where(valid_mask(lens, L), out, 0).to(torch.uint8)
+
+
 # ---------------------------------------------------------------------------
 # Stream coding
 # ---------------------------------------------------------------------------
@@ -159,16 +198,18 @@ def encode_device(seq: torch.Tensor, keep: torch.Tensor,
                   group: int = 2, off: int = 0):
     """Pack kept DNA symbols. Returns (words (n_words_cap,) int64 holding
     uint32, sub_n_words (S,) int64, total_words 0-d int64). Plain mode packs
-    16 bases per element; Huffman mode looks codes up in the (A,) tables
-    (sliced to an alphabet window at `off`) and groups `group` codes."""
+    16 bases per element; Huffman mode looks codes up on K4 in the (A,)
+    tables (sliced to an alphabet window at `off`), broadcast to one row per
+    position as phyngsc_tpu does, and groups `group` codes."""
     if mode == MODE_PLAIN:
         vals = _table(SYM2BIT, seq.device)[seq.long()]
         pc, pl = lookup.group_fixed2(vals, keep, 16)
     else:
         A = codes_tab.shape[-1]
-        sym = (seq.long() - off).clamp(0, A - 1)
-        fused = lookup.fuse_tables(codes_tab, lens_tab)[sym]
-        codes, lens = lookup.split_fused(fused)
+        sym = (seq.int() - off).clamp(0, A - 1).to(torch.uint8)
+        fused_tab = lookup.fuse_tables(codes_tab, lens_tab)[None, :].expand(
+            seq.shape[1], A)
+        codes, lens = lookup.split_fused(lookup.fused_lookup(sym, fused_tab))
         codes = torch.where(keep, codes, 0)
         lens = torch.where(keep, lens, 0)
         pc, pl = lookup.group_codes(codes, lens, group)
@@ -186,8 +227,9 @@ def decode_huffman_walk(words: torch.Tensor, sub_n_words: torch.Tensor,
     Returns (S*G, L) uint8 (0 where not kept)."""
     R, L = keep.shape
     S = R // records_per_substream
-    syms = bitpack.walk_masked(words, sub_n_words, keep.reshape(S, -1), lut,
-                               lut_bits, plain2=False)
+    tree = torch.zeros(1, dtype=torch.int32, device=keep.device)
+    syms = bitpack.walk_masked(words, sub_n_words, keep.reshape(S, -1),
+                               lut[None, :], tree, lut_bits, plain2=False)
     return syms.reshape(R, L)
 
 
@@ -199,7 +241,7 @@ def decode_plain_walk(words: torch.Tensor, sub_n_words: torch.Tensor,
     R, L = keep.shape
     S = R // records_per_substream
     syms = bitpack.walk_masked(words, sub_n_words, keep.reshape(S, -1), None,
-                               12, plain2=True).reshape(R, L)
+                               None, 12, plain2=True).reshape(R, L)
     return torch.where(keep, _table(ACGT, keep.device)[syms.long()], 0).to(
         torch.uint8)
 

@@ -1,9 +1,11 @@
 """Quality stream codec: per-position Huffman models (port of
 phyngsc_tpu/models/quality.py).
 
-analyze runs on K1 (ops/histogram.py), encode is a per-position table
-gather + grouping + scatter pack, decode_walk runs on K2 (ops/bitpack.py).
-Table building and the stream header are host code.
+analyze runs on K1 (ops/histogram.py); encode is the per-position code
+lookup on K4 (ops/lookup.py), then grouping and the scatter pack in plain
+torch; decode_walk (uniform lengths) runs on K2 and decode_walk_masked
+(variable lengths) on K3 (ops/bitpack.py). Table building and the stream
+header are host code.
 """
 
 from __future__ import annotations
@@ -25,8 +27,8 @@ MAX_TREES = 256
 
 # QualityTables, tree_group_ids, _table_cost_bits, _tables_bits,
 # lens_rows_for, build_tables_adaptive, build_tables, write_header and
-# read_header are copied from phyngsc_tpu/models/quality.py (host code);
-# deduplicated once the JAX package splits its host code out.
+# read_header are copied from phyngsc_tpu/models/quality.py (host code in a
+# module that imports jax).
 @dataclasses.dataclass
 class QualityTables:
     lens: np.ndarray        # (T, 256) uint8 code lengths (0 = absent)
@@ -180,8 +182,9 @@ def encode_device(qual: torch.Tensor, lens: torch.Tensor,
     n_trees = lens_tab.shape[0]
     tree = tree_of_position(torch.arange(L, device=qual.device), n_trees, L)
     v = valid_mask(lens, L)
-    sym = (qual.long() - off).clamp(0, codes_tab.shape[1] - 1)
-    fused = lookup.fused_lookup(sym, lookup.fuse_tables(codes_tab, lens_tab)[tree])
+    sym = (qual.int() - off).clamp(0, codes_tab.shape[1] - 1).to(torch.uint8)
+    fused = lookup.fused_lookup(sym,
+                                lookup.fuse_tables(codes_tab, lens_tab)[tree])
     sym_codes, sym_lens = lookup.split_fused(fused)
     sym_codes = torch.where(v, sym_codes, 0)
     sym_lens = torch.where(v, sym_lens, 0)
@@ -208,6 +211,25 @@ def decode_walk(words: torch.Tensor, sub_n_words: torch.Tensor,
                            n_trees, L, legacy)
     return bitpack.walk_uniform(words, sub_n_words, totals, luts, tid,
                                 lut_bits, G, Lt, L)
+
+
+def decode_walk_masked(words: torch.Tensor, sub_n_words: torch.Tensor,
+                       lens: torch.Tensor, luts: torch.Tensor, L: int,
+                       records_per_substream: int, lut_bits: int,
+                       legacy: bool = False) -> torch.Tensor:
+    """Variable-length decode on K3 (port of decode_device_walk_masked): slot
+    t = g*L + p of lane s is position p of record s*G + g, consumes a symbol
+    only where p < its record's length, and takes tree
+    tree_of_position(p). lens (S*G,) record lengths. Returns (S*G, L) uint8
+    (0 where invalid)."""
+    G = records_per_substream
+    S = sub_n_words.shape[0]
+    slots = valid_mask(lens, L).reshape(S, G * L)
+    tid = tree_of_position(torch.arange(L, device=words.device),
+                           luts.shape[0], L, legacy)
+    syms = bitpack.walk_masked(words, sub_n_words, slots, luts, tid,
+                               lut_bits, plain2=False)
+    return syms.reshape(S * G, L)
 
 
 # -- stream header ----------------------------------------------------------

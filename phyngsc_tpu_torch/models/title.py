@@ -27,8 +27,8 @@ per-record stride → fully parallel extract on decode) and a **char stream**
 """
 
 
-# Copied from phyngsc_tpu/models/title.py (host-only); deduplicated once the JAX
-# package splits its host code out of the jax-importing ops/bitpack.py.
+# Copied from phyngsc_tpu/models/title.py (host-only), which imports the
+# jax-importing ops/bitpack.py; the port never imports jax, so it keeps the copy.
 from __future__ import annotations
 
 import dataclasses

@@ -137,30 +137,37 @@ def walk_uniform(words, sub_n_words, totals, luts, tree_of_pos,
         tree_of_pos.to(torch.int32).contiguous(), lut_bits, G, Lt, L)
 
 
-def walk_masked_plain(words, sub_n_words, keep, lut, lut_bits: int,
-                      plain2: bool) -> torch.Tensor:
+def walk_masked_plain(words, sub_n_words, keep, luts, tree_of_pos,
+                      lut_bits: int, plain2: bool) -> torch.Tensor:
     """Plain version of K3: slot t of lane s consumes the lane's next symbol
-    only where keep[s, t] is set. keep (S, T); lut (2^lut_bits,) int32 or
-    None for plain2 (fixed 2-bit codes). Returns (S, T) uint8, 0 where keep
-    is unset."""
+    only where keep[s, t] is set, looking it up in tree tree_of_pos[t % L]
+    (clamped to the tree count) of luts. keep (S, T); luts (n_trees,
+    2^lut_bits) int32 and tree_of_pos (L,) with L dividing T, or both None
+    for plain2 (fixed 2-bit codes). Returns (S, T) uint8, 0 where keep is
+    unset."""
     kernels.note_plain("k3_walk_masked", words)
     S, T = keep.shape
-    luts = None if plain2 else lut.long()[None, :]
     tree_step = torch.zeros(T, dtype=torch.int64, device=words.device)
+    if not plain2:
+        luts = luts.long()
+        tid = tree_of_pos.long().clamp(0, luts.shape[0] - 1)
+        tree_step = tid.repeat(T // tid.shape[0])
     syms = _walk_plain(words, word_starts(sub_n_words), luts, tree_step,
                        keep.bool(), lut_bits, plain2)
     return syms.to(torch.uint8)
 
 
-def walk_masked(words, sub_n_words, keep, lut, lut_bits: int,
+def walk_masked(words, sub_n_words, keep, luts, tree_of_pos, lut_bits: int,
                 plain2: bool) -> torch.Tensor:
     """K3 wrapper; see walk_masked_plain."""
     if words.device.type == "cpu":
-        return walk_masked_plain(words, sub_n_words, keep, lut, lut_bits,
-                                 plain2)
+        return walk_masked_plain(words, sub_n_words, keep, luts, tree_of_pos,
+                                 lut_bits, plain2)
     keep8 = keep.to(torch.uint8).contiguous()
     totals = keep8.sum(dim=1, dtype=torch.int32)
+    if not plain2:
+        luts = luts.to(torch.int32).contiguous()
+        tree_of_pos = tree_of_pos.to(torch.int32).contiguous()
     return kernels.walk_masked(
         words.contiguous(), word_starts(sub_n_words).contiguous(), totals,
-        keep8, None if plain2 else lut.to(torch.int32).contiguous(), lut_bits,
-        plain2)
+        keep8, luts, tree_of_pos, lut_bits, plain2)

@@ -1,7 +1,7 @@
 """Host (numpy) bit-packing twins used by the title codec and the decoders.
 
-Copied verbatim from phyngsc_tpu/ops/bitpack.py:303-432; deduplicated once
-the JAX package splits its host code out of the jax-importing module.
+Copied verbatim from phyngsc_tpu/ops/bitpack.py:303-432, host code in a
+module that imports jax; the port never imports jax, so it keeps the copy.
 """
 
 from __future__ import annotations

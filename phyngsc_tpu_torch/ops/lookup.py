@@ -1,9 +1,11 @@
 """Code-table lookups and symbol grouping (port of phyngsc_tpu/ops/lookup.py).
 
-On the TPU the per-position lookup is a one-hot matmul because XLA:TPU
-serializes gathers; a GPU gathers freely, so fused_lookup is the plain
-gather (the non-TPU branch, lookup.py:103-105). Code values travel as int64
-so that every shift is exact (torch's uint32 coverage is thin).
+fused_lookup is the K4 wrapper: CUDA tensors launch the hand-written table
+gather (csrc/lookup.cu), CPU tensors take fused_lookup_plain. The TPU's
+one-hot matmul variants exist only because XLA:TPU serializes gathers and
+Pallas cannot gather from VMEM; they are not ported. Grouped code values
+travel as int64 so that every shift is exact (torch's uint32 coverage is
+thin).
 """
 
 from __future__ import annotations
@@ -11,12 +13,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from phyngsc_tpu_torch import kernels
+
 #: fused entry layout: (len << CODE_BITS) | code
 CODE_BITS = 12
 
 
 # group_for and window_np are copied from phyngsc_tpu/ops/lookup.py:27-60
-# (host); deduplicated once the JAX package splits its host code out.
+# (host code in a module that imports jax).
 def group_for(max_len: int) -> int:
     """Grouping factor for group_codes: the largest k with
     k * max_len <= 32, clamped to [2, 8]."""
@@ -39,20 +43,37 @@ def window_np(counts) -> tuple:
 
 
 def fuse_tables(codes: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
-    """(T, A) codes + (T, A) lens -> (T, A) int64 fused entries. Requires
-    code < 2**CODE_BITS (max_code_len <= 12)."""
-    return (lens.long() << CODE_BITS) | codes.long()
+    """(T, A) codes + (T, A) lens -> (T, A) int32 fused entries (< 2^16).
+    Requires code < 2**CODE_BITS (max_code_len <= 12)."""
+    return ((lens.long() << CODE_BITS) | codes.long()).to(torch.int32)
+
+
+def fused_lookup_plain(symbols: torch.Tensor,
+                       fused_tab: torch.Tensor) -> torch.Tensor:
+    """Plain version of K4: symbols (R, L), fused_tab (L, A) -> (R, L) int32,
+    out[r, p] = fused_tab[p, sym[r, p]]; a symbol outside [0, A) gives 0, as
+    the TPU kernel's one-hot matches no column."""
+    kernels.note_plain("k4_lookup", symbols)
+    L = symbols.shape[1]
+    A = fused_tab.shape[1]
+    s = symbols.long()
+    hit = (s >= 0) & (s < A)
+    pos = torch.arange(L, device=symbols.device)[None, :]
+    out = fused_tab[pos, s.clamp(0, A - 1)]
+    return torch.where(hit, out, 0).to(torch.int32)
 
 
 def fused_lookup(symbols: torch.Tensor, fused_tab: torch.Tensor) -> torch.Tensor:
-    """symbols (R, L), fused_tab (L, A) -> out[r, p] = fused_tab[p, sym[r, p]]."""
-    L = symbols.shape[1]
-    pos = torch.arange(L, device=symbols.device)[None, :]
-    return fused_tab[pos, symbols.long()]
+    """K4 wrapper. symbols (R, L) uint8, fused_tab (L, A) int32 fused
+    entries -> (R, L) int32 (see fused_lookup_plain)."""
+    if symbols.device.type == "cpu":
+        return fused_lookup_plain(symbols, fused_tab)
+    return kernels.lookup(symbols.contiguous(),
+                          fused_tab.to(torch.int32).contiguous())
 
 
 def split_fused(fused: torch.Tensor):
-    """fused entries -> (codes, lens), both int64."""
+    """fused entries -> (codes, lens), in the entries' dtype."""
     return fused & ((1 << CODE_BITS) - 1), fused >> CODE_BITS
 
 

@@ -6,14 +6,15 @@ windows, encodes sub-blocks through the port's subblock stages
 bucket decision on the calling thread in task order, all device work on
 PyTorch's current stream), frames them into fixed-size blocks and writes the
 footer. The host partitioning, indexing, framing and footer are
-phyngsc_tpu's own modules; the driver functions are copied from
-phyngsc_tpu/pipeline/compress.py (deduplicated once the JAX package splits
-its host code out). Sharded encode (data_shards > 1) is a later slice.
+phyngsc_tpu's own modules; the driver functions and resolve_substream are
+copied from phyngsc_tpu/pipeline/compress.py (which imports jax). Sharded
+encode (data_shards > 1) is a later slice.
 """
 
 from __future__ import annotations
 
 import concurrent.futures as cf
+import dataclasses
 import io
 import os
 from typing import List, Optional
@@ -25,7 +26,7 @@ from phyngsc_tpu.container import block as blockmod
 from phyngsc_tpu.container import footer as footermod
 from phyngsc_tpu.parallel.partition import partition_regions, split_subblocks
 from phyngsc_tpu.utils.fastq import FastqFormatError, index_records
-from phyngsc_tpu.utils.shapes import BucketCtx
+from phyngsc_tpu.utils.shapes import BucketCtx, bucket_length
 from phyngsc_tpu_torch import host_runtime
 from phyngsc_tpu_torch.device import resolve
 from phyngsc_tpu_torch.pipeline import subblock as sbmod
@@ -112,11 +113,35 @@ def encode_subblocks_pipelined(buf: np.ndarray, regions, cfg: CodecConfig,
     return n_tasks
 
 
+def resolve_substream(buf: np.ndarray, cfg: CodecConfig) -> CodecConfig:
+    """Apply CodecConfig.auto_substream: peek the first record's read length
+    and shrink records_per_substream for long reads (bucketed L > 256), so a
+    walk takes about 8192 steps. The resolved value lands in the footer, so
+    decompression follows it."""
+    if not cfg.auto_substream or buf.shape[0] == 0:
+        return cfg
+    b = buf[: 1 << 16].tobytes()
+    t_end = b.find(b"\n")
+    s_end = b.find(b"\n", t_end + 1) if t_end >= 0 else -1
+    if t_end < 0 or s_end < 0:
+        return cfg
+    L0 = bucket_length(s_end - t_end - 1)
+    if L0 <= 256:
+        return cfg
+    g = 8
+    while g * 2 * L0 <= 8192:
+        g *= 2
+    g = min(cfg.records_per_substream, max(8, g))
+    if g == cfg.records_per_substream:
+        return cfg
+    return dataclasses.replace(cfg, records_per_substream=g)
+
+
 def compress_to_file(buf: np.ndarray, out, cfg: Optional[CodecConfig] = None,
                      n_writers: int = 1, device="cuda") -> None:
     """Streaming driver: writes each fixed-size block to `out` (any
     .write()-able) the moment it fills, then the footer."""
-    cfg = cfg or CodecConfig()
+    cfg = resolve_substream(buf, cfg or CodecConfig())
     if cfg.data_shards > 1:
         raise sbmod._not_in_slice("sharded encode (data_shards > 1)")
     host_runtime.ensure()

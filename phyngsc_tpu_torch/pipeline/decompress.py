@@ -5,8 +5,8 @@ decodes each sub-block through the port's subblock stages (device dispatch
 on the calling thread, fetch + FASTQ reassembly on a thread pool, chunks
 completed in order) and places each chunk at its writer's output offset.
 The driver functions are copied from phyngsc_tpu/pipeline/decompress.py
-(deduplicated once the JAX package splits its host code out); the
-multi-process writer filter and sharded decode are later slices.
+(which imports jax); the multi-process writer filter and sharded decode are
+later slices.
 """
 
 from __future__ import annotations

@@ -6,15 +6,16 @@ One sub-block of records -> self-contained bytes, section layout
 
 byte-identical to phyngsc_tpu. Encode: stage_a gathers the planes on the
 host, uploads the raw (Rp, L) seq/qual planes and runs the ambiguity
-transfer and both histograms (K1) on the device; stage_b builds the tables
-on the host and packs both streams on the device; stage_c fetches the words
-and assembles the sections. Decode: _decode_parse is host code;
-decode_stage_a uploads the linear word streams and host-built LUTs, decodes
-quality (K2) then DNA (K3) and restores the ambiguity on the device;
-decode_stage_b fetches the restored planes and reassembles FASTQ text.
-
-Outside this slice (NotImplementedError, never wrong bytes): variable-length
-records, SOLiD delta sub-blocks, and read lengths over 256.
+transfer (after the SOLiD colour-space translation, for delta sub-blocks)
+and both histograms (K1) on the device; stage_b builds the tables on the
+host and packs both streams on the device (code lookups on K4); stage_c
+fetches the words and assembles the sections. Decode: _decode_parse is host
+code; decode_stage_a uploads the linear word streams and host-built LUTs,
+decodes quality (K2 for uniform lengths, K3 with per-position trees for
+variable lengths) then DNA (K3), restores the ambiguity and undoes the delta
+translation on the device; decode_stage_b fetches the restored planes and
+reassembles FASTQ text. Every read length the container holds (up to 65535)
+is taken.
 """
 
 from __future__ import annotations
@@ -33,9 +34,6 @@ from phyngsc_tpu_torch.ops.bitpack_host import bytes_to_words, words_to_bytes
 FLAG_VARIABLE_LENGTH = 1
 FLAG_DELTA = 2
 FLAG_CRC = 4
-
-#: read lengths (bucketed) above this are the long-read slice
-MAX_SLICE_LEN = 256
 
 
 def _not_in_slice(what: str) -> NotImplementedError:
@@ -63,6 +61,26 @@ def _gather_matrix(buf: np.ndarray, starts: np.ndarray, lens: np.ndarray,
     return out
 
 
+def _pack_fixed_np(values: np.ndarray, width: int) -> bytes:
+    """Host fixed-width bit pack via np.packbits, MSB first (copied from
+    phyngsc_tpu/pipeline/subblock.py:62-68)."""
+    if width == 0 or values.shape[0] == 0:
+        return b""
+    v = values.astype(np.uint64)
+    bits = (v[:, None] >> np.arange(width - 1, -1, -1, dtype=np.uint64)[None, :]) & 1
+    return np.packbits(bits.astype(np.uint8).reshape(-1)).tobytes()
+
+
+def _unpack_fixed_np(data: bytes, width: int, n: int) -> np.ndarray:
+    """Inverse of _pack_fixed_np (copied from phyngsc_tpu/pipeline/
+    subblock.py:71-76)."""
+    if width == 0 or n == 0:
+        return np.zeros(n, np.int64)
+    bits = np.unpackbits(np.frombuffer(data, np.uint8))[: n * width]
+    bits = bits.reshape(n, width).astype(np.int64)
+    return (bits << np.arange(width - 1, -1, -1, dtype=np.int64)[None, :]).sum(axis=1)
+
+
 def _word_cap(R: int, L: int, G: int) -> int:
     """Worst-case packed size: <= 16 bits/symbol + one alignment word per
     substream."""
@@ -86,18 +104,29 @@ def _upload_words(words: np.ndarray, device) -> torch.Tensor:
     return _to_device(np.asarray(words, np.uint32).view(np.int32), device)
 
 
-def _uniform_lens(R: int, Rp: int, Lt: int, device) -> torch.Tensor:
-    """(Rp,) int32 record lengths: Lt for the R real records, 0 for padding."""
-    r = torch.arange(Rp, device=device)
-    return torch.where(r < R, Lt, 0).to(torch.int32)
+def _is_variable(lens_np: np.ndarray) -> bool:
+    return bool(lens_np.shape[0]) and not bool(np.all(lens_np == lens_np[0]))
+
+
+def _record_lens(lens_np: np.ndarray, Rp: int, device) -> torch.Tensor:
+    """(Rp,) int32 record lengths on the device, 0 for padding: computed
+    there when every record has the same length, else uploaded."""
+    R = lens_np.shape[0]
+    if not _is_variable(lens_np):
+        Lt = int(lens_np[0]) if R else 0
+        r = torch.arange(Rp, device=device)
+        return torch.where(r < R, Lt, 0).to(torch.int32)
+    pad = np.zeros(Rp, np.int32)
+    pad[:R] = lens_np
+    return _to_device(pad, device)
 
 
 class _StageA:
     """Host gather + device analyze dispatched; counts_blob not fetched yet."""
 
     __slots__ = ("R", "Lt", "L", "Rp", "lens_np", "tlens_np", "titles_np",
-                 "seq", "lens", "qual_t", "keep", "counts_blob", "n_q_counts",
-                 "t_future", "crc")
+                 "is_delta", "seq", "lens", "qual_t", "keep", "counts_blob",
+                 "n_q_counts", "t_future", "crc")
 
 
 class _StageB:
@@ -124,10 +153,6 @@ def stage_a(buf: np.ndarray, idx: RecordIndex, cfg: CodecConfig,
     if Lt > 0xFFFF:
         raise FastqFormatError(
             f"read length {Lt} exceeds the container's 65535 limit")
-    if L > MAX_SLICE_LEN:
-        raise _not_in_slice(f"read length {Lt} (> {MAX_SLICE_LEN})")
-    if R and not bool(np.all(lens_np == lens_np[0])):
-        raise _not_in_slice("variable-length records")
     tlens_np = st.tlens_np = (idx.title_end - idx.title_start).astype(np.int32)
     TL = int(tlens_np.max()) if R else 1
     from phyngsc_tpu.utils import native as _native
@@ -149,8 +174,7 @@ def stage_a(buf: np.ndarray, idx: RecordIndex, cfg: CodecConfig,
         raise FastqFormatError(
             "quality byte >= 128 in input: outside printable phred+33 and "
             "reserved for the ambiguity transfer (phyNGSC.cpp:579 encoding)")
-    if dna.detect_delta(seq_np, lens_np):
-        raise _not_in_slice("SOLiD color-space (delta) records")
+    st.is_delta = dna.detect_delta(seq_np, lens_np)
     if cfg.checksum and R:
         import zlib
 
@@ -163,7 +187,9 @@ def stage_a(buf: np.ndarray, idx: RecordIndex, cfg: CodecConfig,
     if R:
         seq[:R] = _to_device(seq_np, device)
         qual[:R] = _to_device(qual_np, device)
-    lens = st.lens = _uniform_lens(R, Rp, Lt if R else 0, device)
+    lens = st.lens = _record_lens(lens_np, Rp, device)
+    if st.is_delta:
+        seq = st.seq = dna.delta_translate(seq, lens)
     small = int(seq_np.max(initial=0)) < 128
     st.qual_t, st.keep, _ = dna.transfer_ambiguity(seq, qual, lens)
     q_counts = quality.analyze(st.qual_t, lens)
@@ -233,9 +259,17 @@ def stage_c(b: _StageB, cfg: CodecConfig) -> bytes:
     meta = BitWriter()
     meta.put_uint(a.R, 4)
     meta.put_bits(a.Lt, 16)
-    meta.put_byte(FLAG_CRC if a.crc is not None else 0)
+    variable = _is_variable(a.lens_np)
+    meta.put_byte((FLAG_VARIABLE_LENGTH if variable else 0)
+                  | (FLAG_DELTA if a.is_delta else 0)
+                  | (FLAG_CRC if a.crc is not None else 0))
     if a.crc is not None:
         meta.put_uint(a.crc, 4)
+    if variable:
+        w = max(1, int(a.lens_np.max()).bit_length())
+        meta.put_byte(w)
+        meta.flush()
+        meta.put_bytes(_pack_fixed_np(a.lens_np, w))
     meta.flush()
 
     tbw = BitWriter()
@@ -252,7 +286,7 @@ def stage_c(b: _StageB, cfg: CodecConfig) -> bytes:
 
     d_stream = d_words[:d_total].astype(np.uint32)
     dbw = BitWriter()
-    dna.write_header(dbw, b.d_plan, d_sub, d_stream.shape[0], False)
+    dna.write_header(dbw, b.d_plan, d_sub, d_stream.shape[0], a.is_delta)
     dbw.flush()
     dna_sec = dbw.getvalue() + words_to_bytes(d_stream)
 
@@ -283,9 +317,9 @@ class _DParsed:
     """Host-side parse of one sub-block payload: everything the device
     decode needs, as numpy arrays and tables."""
 
-    __slots__ = ("R", "Lt", "L", "Rp", "G", "crc", "lens_np", "titles_np",
-                 "tlens_np", "q_tables", "q_sub", "q_words", "d_plan",
-                 "d_sub", "d_words")
+    __slots__ = ("R", "Lt", "L", "Rp", "G", "variable", "is_delta", "crc",
+                 "lens_np", "titles_np", "tlens_np", "q_tables", "q_sub",
+                 "q_words", "d_plan", "d_sub", "d_words")
 
 
 def _decode_parse(data: bytes, cfg: CodecConfig, executor=None) -> _DParsed:
@@ -305,15 +339,20 @@ def _decode_parse(data: bytes, cfg: CodecConfig, executor=None) -> _DParsed:
     Lt = p.Lt = br.get_bits(16)
     p.L = bucket_length(Lt)
     flags = br.get_byte()
+    p.variable = bool(flags & FLAG_VARIABLE_LENGTH)
+    p.is_delta = bool(flags & FLAG_DELTA)
     p.crc = br.get_uint(4) if flags & FLAG_CRC else None
-    if flags & FLAG_VARIABLE_LENGTH:
-        raise _not_in_slice("variable-length records")
-    if flags & FLAG_DELTA:
-        raise _not_in_slice("SOLiD color-space (delta) records")
-    if p.L > MAX_SLICE_LEN:
-        raise _not_in_slice(f"read length {Lt} (> {MAX_SLICE_LEN})")
-    br.align()
-    p.lens_np = np.full(R, Lt, np.int32)
+    if p.variable:
+        w = br.get_byte()
+        br.align()
+        p.lens_np = _unpack_fixed_np(
+            br.get_bytes(((R * w) + 7) // 8), w, R).astype(np.int32)
+        if R and int(p.lens_np.max()) > Lt:
+            raise ValueError("corrupt meta: a record length exceeds the "
+                             "stored maximum")
+    else:
+        br.align()
+        p.lens_np = np.full(R, Lt, np.int32)
     G = p.G = cfg.records_per_substream
 
     br = BitReader(title_sec)
@@ -343,8 +382,7 @@ def _decode_parse(data: bytes, cfg: CodecConfig, executor=None) -> _DParsed:
 
     dbr = BitReader(dna_sec)
     p.d_plan, p.d_sub, d_total, is_delta_hdr = dna.read_header(dbr)
-    if is_delta_hdr:
-        raise _not_in_slice("SOLiD color-space (delta) records")
+    p.is_delta = p.is_delta or is_delta_hdr
     if p.d_plan.mode != dna.MODE_PLAIN:
         _check_tables(p.d_plan.lens_tab[None, :],
                       np.array([p.d_plan.singleton], np.int32), "DNA", cfg)
@@ -365,18 +403,26 @@ class _DStage:
 
 
 def _decode_device(p: _DParsed, cfg: CodecConfig, device) -> torch.Tensor:
-    """Quality walk (K2) -> keep mask -> DNA walk (K3) -> ambiguity restore.
-    Returns the (2, Rp, L) uint8 seq/qual planes on the device."""
+    """Quality walk (K2, or K3 for variable lengths) -> keep mask -> DNA walk
+    (K3) -> ambiguity restore -> delta untranslate. Returns the (2, Rp, L)
+    uint8 seq/qual planes on the device."""
     if not p.R:
         return torch.zeros((2, 0, p.L), dtype=torch.uint8, device=device)
     V = 1 << cfg.max_code_len
-    lens = _uniform_lens(p.R, p.Rp, p.Lt, device)
+    lens = _record_lens(p.lens_np, p.Rp, device)
     q_luts = (p.q_tables.luts(cfg.max_code_len) if p.q_tables.n_trees
               else np.zeros((1, V), np.int32))
-    qual_t = quality.decode_walk(
-        _upload_words(p.q_words, device), _to_device(p.q_sub, device), lens,
-        _to_device(q_luts, device), p.L, p.Lt, p.G, cfg.max_code_len,
-        legacy=cfg.legacy_tail_trees)
+    q_words = _upload_words(p.q_words, device)
+    q_sub = _to_device(p.q_sub, device)
+    q_luts = _to_device(q_luts, device)
+    if p.variable:
+        qual_t = quality.decode_walk_masked(
+            q_words, q_sub, lens, q_luts, p.L, p.G, cfg.max_code_len,
+            legacy=cfg.legacy_tail_trees)
+    else:
+        qual_t = quality.decode_walk(
+            q_words, q_sub, lens, q_luts, p.L, p.Lt, p.G, cfg.max_code_len,
+            legacy=cfg.legacy_tail_trees)
     keep = (qual_t < 128) & quality.valid_mask(lens, p.L)
     d_words = _upload_words(p.d_words, device)
     d_sub = _to_device(p.d_sub, device)
@@ -387,6 +433,8 @@ def _decode_device(p: _DParsed, cfg: CodecConfig, device) -> torch.Tensor:
         dna_syms = dna.decode_huffman_walk(d_words, d_sub, keep, lut, p.G,
                                            cfg.max_code_len)
     seq, qual = dna.restore_ambiguity(dna_syms, qual_t, lens)
+    if p.is_delta:
+        seq = dna.delta_untranslate(seq, lens)
     return torch.stack([seq, qual])
 
 

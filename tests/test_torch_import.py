@@ -53,7 +53,7 @@ def test_cuda_device_raises_without_card():
 
 
 def test_wrappers_raise_off_the_cpu():
-    from phyngsc_tpu_torch.ops import bitpack, histogram
+    from phyngsc_tpu_torch.ops import bitpack, histogram, lookup
 
     sym = torch.zeros((4, 8), dtype=torch.uint8, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
@@ -69,7 +69,10 @@ def test_wrappers_raise_off_the_cpu():
     with pytest.raises(ValueError, match="CUDA"):
         bitpack.walk_masked(words, sub, torch.zeros((2, 8), dtype=torch.bool,
                                                     device="meta"),
-                            None, 12, True)
+                            None, None, 12, True)
+    with pytest.raises(ValueError, match="CUDA"):
+        lookup.fused_lookup(sym, torch.zeros((8, 64), dtype=torch.int32,
+                                             device="meta"))
 
 
 def test_kernel_library_is_named_by_its_sources():
@@ -79,4 +82,4 @@ def test_kernel_library_is_named_by_its_sources():
     assert path.startswith(kernels.BUILD_DIR)
     assert os.path.basename(path).startswith("libphyngsc_kernels_")
     assert np.all([os.path.exists(os.path.join(kernels.SRC_DIR, f))
-                   for f in ("histogram.cu", "walk.cu")])
+                   for f in ("histogram.cu", "lookup.cu", "walk.cu")])

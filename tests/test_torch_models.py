@@ -158,3 +158,109 @@ def test_layout_and_pack_match_host_twins():
     np.testing.assert_array_equal(
         words.numpy().astype(np.uint32),
         jbitpack.pack_bits_scatter_np(codes, lens, ref["bit_offsets"], n))
+
+
+def _var_planes(data, Rp):
+    """(Rp, L) seq / qual planes + lens of a FASTQ corpus of any lengths."""
+    lines = data.split(b"\n")
+    seqs, quals = lines[1::4], lines[3::4]
+    n = len(seqs)
+    lens = np.zeros(Rp, np.int32)
+    lens[:n] = [len(x) for x in seqs]
+    L = max(4, (int(lens.max()) + 3) // 4 * 4)
+    seq = np.zeros((Rp, L), np.uint8)
+    qual = np.zeros((Rp, L), np.uint8)
+    for i in range(n):
+        seq[i, :lens[i]] = np.frombuffer(seqs[i], np.uint8)
+        qual[i, :lens[i]] = np.frombuffer(quals[i], np.uint8)
+    return seq, qual, lens
+
+
+@pytest.mark.parametrize("n,L,variable,G_", [(700, 100, True, G),
+                                             (40, 1000, False, 8),
+                                             (40, 1000, True, 8)])
+def test_quality_encode_variable_and_long_reads_match(n, L, variable, G_):
+    """The K4 path's plain version inside quality.encode_device against
+    phyngsc_tpu's encode_device, for variable lengths and 1000 bp reads
+    (positions grouped onto 256 trees), on windowed tables."""
+    data = synthesize_fastq(n, read_len=L, seed=n + L, ambiguity_rate=0.01,
+                            variable_length=variable)
+    seq, qual, lens = _var_planes(data, 1024 if n > 100 else 64)
+    jq, _, _ = jdna.transfer_ambiguity(jnp.asarray(seq), jnp.asarray(qual),
+                                       jnp.asarray(lens))
+    counts = np.asarray(jquality.analyze(jq, jnp.asarray(lens)))
+    np.testing.assert_array_equal(
+        quality.analyze(_t(np.asarray(jq)), _t(lens)).numpy(), counts)
+    jt, group = jquality.build_tables_adaptive(counts, CodecConfig())
+    off, A = jlookup.window_np(counts)
+    cap = qual.size // 2 + 200
+    ref = jquality.encode_device(
+        jq, jnp.asarray(lens), jnp.asarray(jt.codes[:, off:off + A]),
+        jnp.asarray(jt.lens[:, off:off + A]), G_, cap, group, "scatter",
+        np.int32(off))
+    pt = convert.quality_tables(jt)
+    got = quality.encode_device(
+        _t(np.asarray(jq)), _t(lens),
+        _t(pt.codes[:, off:off + A].astype(np.int64)),
+        _t(pt.lens[:, off:off + A].astype(np.int64)), G_, cap, group, off)
+    _same(got, ref, int(ref[2]))
+
+
+@pytest.mark.parametrize("alphabet", [b"ACGTN", b"ACGTNRY"])
+def test_dna_huffman_encode_windowed_matches(alphabet):
+    """Huffman DNA through K4's plain version with the (L, A) table
+    broadcast from the windowed (A,) table, as phyngsc_tpu builds it."""
+    rng = np.random.default_rng(len(alphabet))
+    seq = np.zeros((1024, 40), np.uint8)
+    seq[:900] = np.frombuffer(alphabet, np.uint8)[
+        rng.integers(0, len(alphabet), size=(900, 40))]
+    keep = np.zeros((1024, 40), bool)
+    keep[:900] = rng.random((900, 40)) < 0.97
+    counts = np.asarray(jdna.analyze(jnp.asarray(seq), jnp.asarray(keep)))
+    jplan = jdna.plan(counts, CodecConfig())
+    assert jplan.mode == jdna.MODE_HUFFMAN
+    off, A = jlookup.window_np(counts.reshape(1, -1))
+    assert A == 64 and off > 0
+    group = jlookup.group_for(int(jplan.lens_tab.max()))
+    cap = seq.size // 2 + 200
+    ref = jdna.encode_device(
+        jnp.asarray(seq), jnp.asarray(keep),
+        jnp.asarray(jplan.codes_tab[off:off + A]),
+        jnp.asarray(jplan.lens_tab[off:off + A]), jplan.mode, G, cap, group,
+        "scatter", np.int32(off))
+    plan = convert.dna_plan(jplan)
+    got = dna.encode_device(
+        _t(seq), _t(keep), _t(plan.codes_tab[off:off + A].astype(np.int64)),
+        _t(plan.lens_tab[off:off + A].astype(np.int64)), plan.mode, G, cap,
+        group, off)
+    _same(got, ref, int(ref[2]))
+
+
+def _solid_planes(R, Rp, L, seed):
+    """Colour-space reads: a nucleotide head, then '0'-'3' colours; variable
+    lengths and zero padding rows."""
+    rng = np.random.default_rng(seed)
+    lens = np.zeros(Rp, np.int32)
+    lens[:R] = rng.integers(1, L + 1, size=R)
+    seq = np.zeros((Rp, L), np.uint8)
+    seq[:R, 0] = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, size=R)]
+    seq[:R, 1:] = rng.integers(0, 4, size=(R, L - 1)) + ord("0")
+    seq[np.arange(L)[None, :] >= lens[:, None]] = 0
+    return seq, lens
+
+
+@pytest.mark.parametrize("R,L", [(300, 36), (50, 1), (200, 300)])
+def test_delta_translate_matches(R, L):
+    seq, lens = _solid_planes(R, 512, L, R + L)
+    assert dna.detect_delta(seq[:R], lens[:R]) == jdna.detect_delta(
+        seq[:R], lens[:R]) == (L > 1)
+    ref = np.asarray(jdna.delta_translate(jnp.asarray(seq), jnp.asarray(lens)))
+    got = dna.delta_translate(_t(seq), _t(lens))
+    assert got.dtype == torch.uint8
+    np.testing.assert_array_equal(got.numpy(), ref)
+    back_ref = np.asarray(jdna.delta_untranslate(jnp.asarray(ref),
+                                                 jnp.asarray(lens)))
+    back = dna.delta_untranslate(got, _t(lens))
+    np.testing.assert_array_equal(back.numpy(), back_ref)
+    np.testing.assert_array_equal(back.numpy(), seq)  # the translation inverts
+

@@ -1,8 +1,8 @@
 """The port's round trip against phyngsc_tpu's: compress_bytes writes the
 same container byte for byte, each side decodes the other's containers, the
-committed goldens decode, corrupt containers raise, and inputs outside this
-slice of the port raise NotImplementedError instead of writing other
-bytes."""
+committed goldens decode, corrupt containers raise, and the configurations
+the port does not take yet (data_shards > 1) raise NotImplementedError
+instead of writing other bytes."""
 
 import hashlib
 import os
@@ -21,7 +21,8 @@ from phyngsc_tpu_torch.models import dna
 from phyngsc_tpu_torch.pipeline import subblock
 from phyngsc_tpu_torch.pipeline.compress import compress_bytes
 from phyngsc_tpu_torch.pipeline.decompress import decompress_bytes
-from test_format_stability import _golden_input, _titles_input
+from test_format_stability import (_golden_input, _longread_input,
+                                   _titles_input)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDEN_DIR = os.path.join(ROOT, "tests", "golden")
@@ -46,19 +47,38 @@ def _huffman_dna_input(n, read_len, seed):
     return b"".join(recs)
 
 
-def _dna_modes(blob, cfg):
-    """DNA mode of every sub-block in a container."""
+def _parsed(blob):
+    """The port's host parse of every sub-block in a container, with the
+    container's own geometry."""
     foot = footermod.read_footer(blob)
+    cfg = CodecConfig(records_per_substream=foot.records_per_substream)
     sizes = foot.block_sizes_in_file_order()
     offs = np.concatenate([[0], np.cumsum(sizes)])
     blocks = ((w, blob[offs[i]:offs[i + 1]]) for i, w in enumerate(foot.cbo))
-    return [subblock._decode_parse(p, cfg).d_plan.mode
+    return [subblock._decode_parse(p, cfg)
             for _, p in blockmod.iter_subblocks(blocks)]
 
 
-@pytest.mark.parametrize("case", ["err36", "err36_huffman", "srr76"])
+def _solid_input(n, seed, variable=False):
+    """SOLiD colour-space reads: a nucleotide, then '0'-'3' colours."""
+    rng = np.random.default_rng(seed)
+    recs = []
+    for i in range(n):
+        m = int(rng.integers(30, 51)) if variable else 50
+        recs.append(b"@solid.%d\n" % i
+                    + b"ACGT"[rng.integers(0, 4):][:1]
+                    + (rng.integers(0, 4, size=m - 1) + ord("0")).astype(
+                        np.uint8).tobytes()
+                    + b"\n+\n" + rng.integers(33, 64, size=m).astype(
+                        np.uint8).tobytes() + b"\n")
+    return b"".join(recs)
+
+
+@pytest.mark.parametrize("case", ["err36", "err36_huffman", "srr76", "var100",
+                                  "long1000", "solid"])
 @pytest.mark.parametrize("writers", [1, 2])
 def test_compress_matches_jax(case, writers):
+    variable = delta = False
     if case == "err36":
         data = synthesize_fastq(1200, read_len=36, seed=21,
                                 ambiguity_rate=0.01)
@@ -66,13 +86,25 @@ def test_compress_matches_jax(case, writers):
     elif case == "err36_huffman":
         data = _huffman_dna_input(900, 36, 22)
         mode = dna.MODE_HUFFMAN
-    else:
+    elif case == "srr76":
         data = synthesize_fastq(700, read_len=76, style="SRR", seed=23)
         mode = dna.MODE_PLAIN
+    elif case == "var100":
+        data = synthesize_fastq(500, read_len=100, seed=24,
+                                variable_length=True)
+        mode, variable = dna.MODE_PLAIN, True
+    elif case == "long1000":
+        data = synthesize_fastq(40, read_len=1000, seed=25)
+        mode = dna.MODE_PLAIN
+    else:
+        data = _solid_input(1000, 26, variable=True)
+        mode, variable, delta = dna.MODE_PLAIN, True, True
     ref = jax_compress(data, CFG, writers)
     got = compress_bytes(data, CFG, writers, device=CPU)
-    modes = _dna_modes(got, CFG)
-    assert len(modes) >= 3 and set(modes) == {mode}
+    parsed = _parsed(got)
+    assert len(parsed) >= 3 and {p.d_plan.mode for p in parsed} == {mode}
+    assert all(p.is_delta == delta for p in parsed)
+    assert any(p.variable for p in parsed) == variable
     assert got == ref
     assert decompress_bytes(got, device=CPU) == data
 
@@ -89,14 +121,17 @@ def test_each_side_decodes_the_others_containers(monkeypatch):
         assert jax_decompress(tblob) == data
 
 
-@pytest.mark.parametrize("name", ["tiny_v1.ngsct", "tiny_v2.ngsct",
-                                  "titles_v3.ngsct"])
+GOLDEN_INPUTS = {"tiny_v1.ngsct": _golden_input,
+                 "tiny_v2.ngsct": _golden_input,
+                 "titles_v3.ngsct": _titles_input,
+                 "longread_v4.ngsct": _longread_input}
+
+
+@pytest.mark.parametrize("name", sorted(GOLDEN_INPUTS))
 def test_port_decodes_goldens(name):
     with open(os.path.join(GOLDEN_DIR, name), "rb") as f:
         blob = f.read()
-    want = (_titles_input() if name == "titles_v3.ngsct"
-            else _golden_input())
-    assert decompress_bytes(blob, device=CPU) == want
+    assert decompress_bytes(blob, device=CPU) == GOLDEN_INPUTS[name]()
 
 
 def test_titles_input_reencodes_like_jax():
@@ -149,12 +184,21 @@ def _long_input():
 
 @pytest.mark.parametrize("build", [_variable_input, _delta_input, _long_input])
 def test_out_of_slice_inputs_raise(build):
+    """Named for the input classes that the port's first slice rejected
+    (variable lengths, SOLiD colour space, reads over 256 bp): none raises
+    any more. Each compresses to phyngsc_tpu's bytes at 1 and 2 writers, and
+    each side decodes the other's container."""
     data = build()
-    with pytest.raises(NotImplementedError, match="later slice"):
-        compress_bytes(data, CFG, 1, device=CPU)
-    blob = jax_compress(data, CFG, 1)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        decompress_bytes(blob, device=CPU)
+    parsed = _parsed(jax_compress(data, CFG, 1))
+    assert all(p.variable for p in parsed) == (build is _variable_input)
+    assert all(p.is_delta for p in parsed) == (build is _delta_input)
+    assert all(p.L > 256 for p in parsed) == (build is _long_input)
+    for writers in (1, 2):
+        ref = jax_compress(data, CFG, writers)
+        got = compress_bytes(data, CFG, writers, device=CPU)
+        assert got == ref
+        assert decompress_bytes(ref, device=CPU) == data
+        assert jax_decompress(got) == data
 
 
 def test_sharded_config_raises():

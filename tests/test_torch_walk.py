@@ -154,6 +154,100 @@ def test_dna_huffman_walk_matches_pallas(alphabet):
     np.testing.assert_array_equal(got.numpy(), np.where(keep, seq, 0))
 
 
+def _variable_case(R, Rp, Lmax, n_trees, seed, legacy):
+    """Variable-length qualities and tables for them: positions grouped
+    onto n_trees trees by the v4 proportional map, or by the v1-v3 tail
+    clamp min(p, n_trees - 1) when legacy."""
+    L = max(4, (Lmax + 3) // 4 * 4)
+    rng = np.random.default_rng(seed)
+    lens = np.zeros(Rp, np.int32)
+    lens[:R] = rng.integers(max(1, Lmax - 9), Lmax + 1, size=R)
+    lens[0] = Lmax
+    qual = np.where(np.arange(L)[None, :] < lens[:, None],
+                    rng.integers(33, 74, size=(Rp, L)), 0).astype(np.uint8)
+    counts = np.asarray(jquality.analyze(jnp.asarray(qual), jnp.asarray(lens)))
+    if n_trees < counts.shape[0]:
+        T0 = counts.shape[0]
+        gid = (np.minimum(np.arange(T0), n_trees - 1) if legacy
+               else np.arange(T0) * n_trees // T0)
+        merged = np.zeros((n_trees, 256), np.int64)
+        np.add.at(merged, gid, counts)
+        counts = merged
+    tables = jquality.build_tables(counts, CFG)
+    return qual, lens, L, tables
+
+
+def _variable_stream(qual, lens, L, jt, legacy, G_):
+    """phyngsc_tpu's stream; a v1-v3 stream codes position p with tree
+    min(p, n_trees - 1), written through per-position copies of the trees."""
+    if legacy:
+        tid = np.minimum(np.arange(L), jt.n_trees - 1)
+        jt = jquality.QualityTables(jt.lens[tid], jt.codes[tid],
+                                    jt.singletons[tid])
+    cap = qual.size + 64
+    w, sub, total = jquality.encode_device(
+        jnp.asarray(qual), jnp.asarray(lens), jnp.asarray(jt.codes),
+        jnp.asarray(jt.lens), G_, cap, 2, "scatter")
+    return np.asarray(w)[: int(total)], np.asarray(sub)
+
+
+@pytest.mark.parametrize("R,Lmax,n_trees,legacy,G_", [
+    (300, 36, 36, False, G),     # one tree per position
+    (600, 37, 9, False, G),      # merged trees, dead lanes
+    (500, 38, 10, True, G),      # legacy tail clamp
+    (40, 300, 256, False, 8),    # long reads: proportional map onto 256
+])
+def test_multi_tree_masked_walk_matches_pallas(R, Lmax, n_trees, legacy, G_):
+    """K3 with per-position trees, kernel level: the port's plain walk over
+    (S, T) slots against unpack_substreams_masked_pallas fed per-step
+    tables starts[tid], deltas[tid] (tid = tree of t % L) and the slot
+    mask, as decode_device_walk_masked feeds it."""
+    Rp = 1024 if R >= 300 else 64
+    qual, lens, L, jt = _variable_case(R, Rp, Lmax, n_trees, R + Lmax, legacy)
+    words, sub = _variable_stream(qual, lens, L, jt, legacy, G_)
+    S, T = Rp // G_, G_ * L
+    dense = _dense(words, sub)
+    valid = np.arange(L)[None, :] < lens[:, None]
+    starts, deltas = _runs(jt.lens, jt.singletons)
+    tid = np.asarray(jquality.tree_of_position(
+        jnp.arange(T, dtype=jnp.int32) % L, jt.n_trees, L, legacy))
+    ref = np.asarray(jbitpack.unpack_substreams_masked_pallas(
+        dense, starts[tid], deltas[tid],
+        jbitpack.slot_mask(jnp.asarray(valid), G_, dense.shape[1]),
+        n_steps=T, lut_bits=BITS, interpret=True))[:S]
+    ptid = quality.tree_of_position(torch.arange(L), jt.n_trees, L, legacy)
+    got = bitpack.walk_masked_plain(
+        _words(words), _t(sub), _t(valid.reshape(S, T)),
+        _t(convert.quality_tables(jt).luts(BITS)), ptid, BITS, False)
+    assert got.shape == (S, T)
+    np.testing.assert_array_equal(got.numpy(), ref)
+
+
+@pytest.mark.parametrize("R,Lmax,n_trees,legacy,G_", [
+    (300, 36, 36, False, G),
+    (600, 37, 9, False, G),
+    (500, 38, 10, True, G),
+    (40, 300, 256, False, 64),   # G*L > 16384: the TPU's shared-LUT period path
+])
+def test_variable_quality_decode_matches(R, Lmax, n_trees, legacy, G_):
+    """Model level: quality.decode_walk_masked (K3, per-position trees)
+    against phyngsc_tpu's decode_device_walk_masked, and what was encoded."""
+    Rp = 1024 if R >= 300 else 64
+    qual, lens, L, jt = _variable_case(R, Rp, Lmax, n_trees, R + Lmax + 1,
+                                       legacy)
+    words, sub = _variable_stream(qual, lens, L, jt, legacy, G_)
+    ref = np.asarray(jquality.decode_device_walk_masked(
+        _dense(words, sub), jnp.asarray(lens), _runs(jt.lens, jt.singletons),
+        L, G_, BITS, legacy=legacy, interpret=True))
+    got = quality.decode_walk_masked(
+        _words(words), _t(sub), _t(lens),
+        _t(convert.quality_tables(jt).luts(BITS)), L, G_, BITS,
+        legacy=legacy)
+    assert got.dtype == torch.uint8 and got.shape == (Rp, L)
+    np.testing.assert_array_equal(got.numpy(), ref)
+    np.testing.assert_array_equal(got.numpy(), qual)
+
+
 def test_walk_reads_past_the_end_as_zero():
     """A corrupt substream table pointing past the words decodes garbage
     but stays in bounds: reads past the end see zero words, exactly as the
@@ -167,6 +261,6 @@ def test_walk_reads_past_the_end_as_zero():
     assert got.shape == (4, 4)
     assert int(got[2:].max()) == 0
     keep = torch.ones((2, 8), dtype=torch.bool)
-    out = bitpack.walk_masked_plain(words, sub, keep, None, 12, True)
+    out = bitpack.walk_masked_plain(words, sub, keep, None, None, 12, True)
     assert int(out[1].max()) == 0
     assert out[0].tolist()[:4] == [3, 3, 3, 3]
