@@ -8,19 +8,27 @@ Phases (any failure exits non-zero):
      versions, and the kernels' build time;
   2. each hand-written kernel (K1 histogram, K2 uniform walk, K3 masked walk
      in its plain2, Huffman and per-position-tree quality variants, K4 code
-     lookup) against its plain PyTorch version on the card, on the inputs
-     the pipeline gives it for one default 8 MiB sub-block (36 bp, 100 bp
-     variable-length and 1000 bp reads); results must be exactly equal;
-     times are CUDA-event medians;
+     lookup, K5 densify) against its plain PyTorch version on the card, on
+     the inputs the pipeline gives it for one default 8 MiB sub-block (36 bp,
+     100 bp variable-length and 1000 bp reads, and K5 on lanes past 2^16
+     words; the walks on the word plane K5 builds); results must be exactly
+     equal; times are CUDA-event medians;
   3. the main path: compress_bytes -> decompress_bytes with device="cuda" on
      --mb MB of synthetic ERR005195 36 bp reads, an SRR-style 76 bp corpus
      whose DNA stream is Huffman-coded, variable-length 100 bp reads,
-     1000 bp reads and SOLiD colour-space reads, each byte-identical, with
-     every kernel variant launched and no plain version run on a CUDA
-     tensor;
-  4. the committed golden containers tiny_v1 / tiny_v2 / titles_v3 /
+     1000 bp reads, SOLiD colour-space reads and variable 5.4 kbp reads whose
+     lanes hold more than 2^16 words, each byte-identical, with
+     every kernel variant launched, K5 twice per decoded sub-block, and no
+     plain version run on a CUDA tensor;
+  4. the file entry points: compress_file -> decompress_file of the
+     ERR005195 corpus on disk, byte-identical, with every kernel of the path
+     launched in that run, then `python3 -m phyngsc_tpu_torch verify FILE
+     --device cuda` in a child process, which must exit 0;
+  5. the committed golden containers tiny_v1 / tiny_v2 / titles_v3 /
      longread_v4 decode to their inputs, and the titles_v3 input re-encodes
-     to phyngsc_tpu's bytes (by SHA-256).
+     to phyngsc_tpu's bytes (by SHA-256);
+  6. each phase-2 kernel case's own device time from a torch.profiler trace
+     (last, so that the profiler cannot touch the timed round trips).
 The last line is {"ok": true, "device": {...}}; the line before it lists the
 kernels with their launch counts, errors and times.
 """
@@ -31,6 +39,7 @@ import argparse
 import hashlib
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -46,10 +55,13 @@ from phyngsc_tpu_torch import (CodecConfig, host_runtime, kernels,  # noqa: E402
 from phyngsc_tpu_torch.models import dna, quality  # noqa: E402
 from phyngsc_tpu_torch.ops import bitpack, histogram, lookup  # noqa: E402
 from phyngsc_tpu_torch.pipeline import compress, subblock  # noqa: E402
-from phyngsc_tpu_torch.pipeline.decompress import decompress_bytes  # noqa: E402
+from phyngsc_tpu_torch.pipeline.decompress import (  # noqa: E402
+    decompress_bytes, decompress_file)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN_DIR = os.path.join(ROOT, "tests", "golden")
+#: scratch files of the file phase, inside the checkout's git-ignored build/
+FILE_DIR = os.path.join(ROOT, "build", "chip_smoke")
 GOLDEN_CFG = CodecConfig(subblock_input_bytes=32 << 10,
                          records_per_substream=16)
 #: SHA-256 of phyngsc_tpu's compress_bytes(titles_v3 input, GOLDEN_CFG, 2).
@@ -69,7 +81,17 @@ KERNELS = {
                        "phyngsc_tpu/ops/bitpack.py:698"),
     "k4_lookup": ("phyngsc_tpu_torch/csrc/lookup.cu",
                   "phyngsc_tpu/ops/lookup.py:214"),
+    "k5_densify": ("phyngsc_tpu_torch/csrc/densify.cu",
+                   "phyngsc_tpu/ops/bitpack.py:870"),
 }
+#: each kernel's __global__ function, as torch.profiler names it
+KERNEL_FN = {"k1_histogram": "hist_kernel",
+             "k2_walk_uniform": "walk_uniform_kernel",
+             "k3_walk_masked": "walk_masked_kernel",
+             "k4_lookup": "lookup_kernel", "k5_densify": "densify_kernel"}
+#: the kernels (and K3 variants) that the ERR005195 36 bp path launches
+ERR_PATH = ("k1_histogram", "k2_walk_uniform", "k3_walk_masked/plain2",
+            "k4_lookup", "k5_densify")
 
 
 def require(cond: bool, what: str) -> None:
@@ -90,6 +112,25 @@ def cuda_ms(fn, reps: int) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, reps: int, kernel_fn: str):
+    """Mean device time per fn() call of the CUDA kernels named kernel_fn,
+    from torch.profiler's trace of reps calls (the kernel alone, without the
+    wrapper's host work that a CUDA-event pair around one call includes);
+    None when the trace shows no such kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "device_time_total", 0)
+             or getattr(e, "cuda_time_total", 0)
+             for e in prof.key_averages() if kernel_fn in e.key)
+    return us / reps / 1e3 if us else None
 
 
 def srr_huffman_corpus(n: int, seed: int) -> bytes:
@@ -114,6 +155,20 @@ def solid_corpus(n: int, seed: int) -> bytes:
     return b"".join(b"@solid.%d\n%s\n+\n%s\n" % (i, seq[i].tobytes(),
                                                    qual[i].tobytes())
                     for i in range(n))
+
+
+def long_lane_corpus(n: int, seed: int) -> bytes:
+    """A 100 bp read, then n reads of 5,300-5,500 bp with uniform bases and
+    qualities: auto_substream sees only the first read and keeps G = 64, so
+    a lane's quality stream outgrows 2^16 words."""
+    rng = np.random.default_rng(seed)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    lens = [100] + list(rng.integers(5300, 5501, size=n))
+    return b"".join(
+        b"@long.%d\n%s\n+\n%s\n" % (
+            i, acgt[rng.integers(0, 4, size=m)].tobytes(),
+            rng.integers(33, 127, size=m).astype(np.uint8).tobytes())
+        for i, m in enumerate(lens))
 
 
 def corpus_of(mb: float, build) -> bytes:
@@ -167,6 +222,22 @@ class FirstSubblock:
         self.p = subblock._decode_parse(subblock.stage_c(b, self.cfg),
                                         self.cfg)
         self.lens = subblock._record_lens(self.p.lens_np, self.p.Rp, dev)
+        self.dev = dev
+
+    def stream(self, which: str):
+        """(linear words, substream table, Wmax, Sp) of the quality ("q") or
+        DNA ("d") stream on the card, as the decode uploads them."""
+        p = self.p
+        sub_np = p.q_sub if which == "q" else p.d_sub
+        words = subblock._upload_words(p.q_words if which == "q"
+                                       else p.d_words, self.dev)
+        Wmax, Sp = bitpack.plane_geometry(sub_np, p.G, p.L,
+                                          self.cfg.max_code_len)
+        return words, torch.from_numpy(sub_np).to(self.dev), Wmax, Sp
+
+    def plane(self, which: str) -> torch.Tensor:
+        """The stream's word plane, built by K5 as the decode builds it."""
+        return bitpack.dense_words(*self.stream(which))
 
     def describe(self, what: str) -> None:
         p = self.p
@@ -177,7 +248,11 @@ class FirstSubblock:
               f"{[tuple(t.shape) for _, t in self.lookups]}", flush=True)
 
 
-def compare(name: str, kernel_fn, plain_fn, reps: int, plain_reps: int):
+def compare(kernel: str, name: str, kernel_fn, plain_fn, reps: int,
+            plain_reps: int):
+    """kernel_fn (a launch of `kernel`) against plain_fn on the card: exact
+    equality, then the CUDA-event median of one call of each. The kernel's
+    own device time comes later (phase_device_times), from `_probe`."""
     got = kernel_fn()
     ref = plain_fn()
     torch.cuda.synchronize()
@@ -187,9 +262,20 @@ def compare(name: str, kernel_fn, plain_fn, reps: int, plain_reps: int):
     require(err == 0, f"{name}: kernel differs from its plain version "
             f"(max abs err {err})")
     case = {"case": name, "shape": list(got.shape), "max_abs_err": err,
-            "ms": cuda_ms(kernel_fn, reps), "plain_ms": cuda_ms(plain_fn, plain_reps)}
+            "ms": cuda_ms(kernel_fn, reps),
+            "plain_ms": cuda_ms(plain_fn, plain_reps)}
     print(f"kernel check: {json.dumps(case)}", flush=True)
+    case["_probe"] = (kernel_fn, reps, KERNEL_FN[kernel])
     return case
+
+
+def phase_device_times(cases: dict) -> None:
+    """Fill each case's device_ms (profiler time of the kernel alone)."""
+    for kernel_cases in cases.values():
+        for case in kernel_cases:
+            case["device_ms"] = device_ms(*case.pop("_probe"))
+            print(f"device time: {case['case']}: {case['device_ms']} ms",
+                  flush=True)
 
 
 def phase_kernels(dev) -> dict:
@@ -199,25 +285,23 @@ def phase_kernels(dev) -> dict:
     def k1(name, sym, mask, A):
         mask = mask.to(torch.uint8).contiguous()
         cases["k1_histogram"].append(compare(
-            name, lambda: kernels.histogram(sym, mask, A),
+            "k1_histogram", name, lambda: kernels.histogram(sym, mask, A),
             lambda: histogram.position_histogram_plain(sym, mask, A), 20, 5))
 
     def k2(name, f):
         p, G = f.p, f.G
         S = p.q_sub.shape[0]
-        q_words = subblock._upload_words(p.q_words, dev)
-        q_sub = torch.from_numpy(p.q_sub).to(dev)
-        q_start = bitpack.word_starts(q_sub)
+        plane = f.plane("q")
         totals = f.lens.reshape(S, G).sum(dim=1, dtype=torch.int32)
         luts = torch.from_numpy(p.q_tables.luts(bits)).to(dev)
         tid = quality.tree_of_position(torch.arange(p.Lt, device=dev),
                                        p.q_tables.n_trees, p.L).to(torch.int32)
         cases["k2_walk_uniform"].append(compare(
-            name,
-            lambda: kernels.walk_uniform(q_words, q_start, totals, luts, tid,
-                                         bits, G, p.Lt, p.L),
-            lambda: bitpack.walk_uniform_plain(q_words, q_sub, totals, luts,
-                                               tid, bits, G, p.Lt, p.L),
+            "k2_walk_uniform", name,
+            lambda: kernels.walk_uniform(plane, totals, luts, tid, bits, G,
+                                         p.Lt, p.L),
+            lambda: bitpack.walk_uniform_plain(plane, totals, luts, tid, bits,
+                                               G, p.Lt, p.L),
             20, 3))
 
     def k3(name, f, variant):
@@ -225,44 +309,52 @@ def phase_kernels(dev) -> dict:
         quality (variable-length quality, per-position trees)."""
         p, G = f.p, f.G
         S = p.q_sub.shape[0]
-        q_words = subblock._upload_words(p.q_words, dev)
-        q_sub = torch.from_numpy(p.q_sub).to(dev)
+        q_plane = f.plane("q")
         q_luts = torch.from_numpy(p.q_tables.luts(bits)).to(dev)
         valid = quality.valid_mask(f.lens, p.L)
         if variant == "quality":
-            words, sub, keep, luts = q_words, q_sub, valid, q_luts
+            plane, keep, luts = q_plane, valid, q_luts
             tid = quality.tree_of_position(torch.arange(p.L, device=dev),
                                            p.q_tables.n_trees, p.L).to(
                                                torch.int32)
         else:
             if p.variable:
-                qual_t = quality.decode_walk_masked(q_words, q_sub, f.lens,
-                                                    q_luts, p.L, G, bits)
+                qual_t = quality.decode_walk_masked(q_plane, f.lens, q_luts,
+                                                    p.L, G, bits)
             else:
-                qual_t = quality.decode_walk(q_words, q_sub, f.lens, q_luts,
-                                             p.L, p.Lt, G, bits)
+                qual_t = quality.decode_walk(q_plane, f.lens, q_luts, p.L,
+                                             p.Lt, G, bits)
             keep = (qual_t < 128) & valid
-            words = subblock._upload_words(p.d_words, dev)
-            sub = torch.from_numpy(p.d_sub).to(dev)
+            plane = f.plane("d")
             luts = (None if variant == "plain2" else
                     torch.from_numpy(p.d_plan.luts(bits)).to(dev))
             tid = (None if variant == "plain2" else
                    torch.zeros(1, dtype=torch.int32, device=dev))
         keep = keep.to(torch.uint8).reshape(S, -1).contiguous()
-        start = bitpack.word_starts(sub)
         tot = keep.sum(dim=1, dtype=torch.int32)
         plain2 = variant == "plain2"
         cases["k3_walk_masked"].append(compare(
-            name,
-            lambda: kernels.walk_masked(words, start, tot, keep, luts, tid,
-                                        bits, plain2),
-            lambda: bitpack.walk_masked_plain(words, sub, keep, luts, tid,
-                                              bits, plain2),
+            "k3_walk_masked", name,
+            lambda: kernels.walk_masked(plane, tot, keep, luts, tid, bits,
+                                        plain2),
+            lambda: bitpack.walk_masked_plain(plane, keep, luts, tid, bits,
+                                              plain2),
             20, 3))
+
+    def k5(name, f):
+        for which in ("q", "d"):
+            words, sub, Wmax, Sp = f.stream(which)
+            start = bitpack.word_starts(sub)
+            sub32 = sub.to(torch.int32)
+            cases["k5_densify"].append(compare(
+                "k5_densify", f"{name} {which} plane ({Wmax}, {Sp})",
+                lambda: kernels.densify(words, start, sub32, Wmax, Sp),
+                lambda: bitpack.dense_words_plain(words, sub, Wmax, Sp),
+                50, 10))
 
     def k4(name, sym, tab):
         cases["k4_lookup"].append(compare(
-            name, lambda: kernels.lookup(sym, tab),
+            "k4_lookup", name, lambda: kernels.lookup(sym, tab),
             lambda: lookup.fused_lookup_plain(sym, tab), 20, 5))
 
     err = FirstSubblock(synthesize_fastq(70000, read_len=36, seed=1), dev)
@@ -270,6 +362,7 @@ def phase_kernels(dev) -> dict:
     a = err.a
     k1("k1 quality A=256", a.qual_t, quality.valid_mask(a.lens, a.L), 256)
     k1("k1 dna keep A=128", a.seq, a.keep, 128)
+    k5("k5 36 bp", err)
     k2("k2 quality walk", err)
     require(err.p.d_plan.mode == dna.MODE_PLAIN,
             "ERR005195 DNA plan is not plain")
@@ -297,6 +390,7 @@ def phase_kernels(dev) -> dict:
     require(var.p.variable and var.p.q_tables.n_trees > 1,
             "variable-length sub-block without several quality trees")
     k3("k3 quality variable-length", var, "quality")
+    k5("k5 variable 100 bp", var)
 
     long_ = FirstSubblock(synthesize_fastq(5000, read_len=1000, seed=4), dev)
     long_.describe("1000 bp")
@@ -304,53 +398,128 @@ def phase_kernels(dev) -> dict:
     require(a.L == 1000, "1000 bp sub-block is not L = 1000")
     k1("k1 quality L=1000", a.qual_t, quality.valid_mask(a.lens, a.L), 256)
     k2("k2 quality walk L=1000", long_)
+    k5("k5 1000 bp", long_)
     k4(f"k4 quality L=1000 A={long_.lookups[0][1].shape[1]}",
        *long_.lookups[0])
+
+    lanes = FirstSubblock(long_lane_corpus(1500, seed=5), dev)
+    lanes.describe("long lanes")
+    lane = int(lanes.p.q_sub.max())
+    require(lanes.G == 64 and lane > 1 << 16,
+            f"long-lane sub-block: G = {lanes.G}, longest lane {lane} words")
+    k5("k5 long lanes", lanes)
     return cases
 
 
 def round_trip(data: bytes, dev, what: str) -> None:
+    """compress_bytes -> decompress_bytes on the card, byte-identical, with
+    K5 launched twice (quality and DNA planes) per decoded sub-block."""
+    stats = []
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    comp = compress.compress_bytes(data, CodecConfig(), 1, device=dev)
+    comp = compress.compress_bytes(data, CodecConfig(), 1, device=dev,
+                                   stats_out=stats)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
+    k5_before = kernels.LAUNCHES["k5_densify"]
     back = decompress_bytes(comp, None, device=dev)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     require(back == data, f"{what}: round trip is not byte-identical")
+    n_sub = sum(s.n_subblocks for s in stats)
+    k5 = kernels.LAUNCHES["k5_densify"] - k5_before
+    require(k5 == 2 * n_sub, f"{what}: K5 launched {k5} times for {n_sub} "
+            "decoded sub-blocks, not twice each")
     mb = len(data) / 1e6
     print(f"round trip {what}: {len(data)} B -> {len(comp)} B, ratio "
           f"{len(data) / len(comp):.4f}, compress {mb / (t1 - t0):.2f} MB/s "
           f"({t1 - t0:.3f} s), decompress {mb / (t2 - t1):.2f} MB/s "
-          f"({t2 - t1:.3f} s), byte-identical", flush=True)
+          f"({t2 - t1:.3f} s), byte-identical, {n_sub} sub-blocks, "
+          f"{k5} K5 launches", flush=True)
 
 
-def phase_round_trip(dev, mb: int) -> dict:
+def check_counts(what: str, names) -> dict:
+    """The launch counts of the run just driven: every kernel of `names`
+    launched, no plain version run on a CUDA tensor."""
+    launches = dict(kernels.LAUNCHES)
+    plain = dict(kernels.PLAIN_ON_CUDA)
+    print(f"{what} launches: {json.dumps(launches)}", flush=True)
+    print(f"{what}: plain versions run on CUDA tensors: {json.dumps(plain)}",
+          flush=True)
+    require(all(launches[n] > 0 for n in names),
+            f"a kernel of the {what} was never launched")
+    require(not any(plain.values()),
+            f"a plain version ran on a CUDA tensor in the {what}")
+    return launches
+
+
+def phase_round_trip(dev, err: bytes) -> dict:
     corpora = [
-        (f"ERR005195 36 bp {mb} MB", corpus_of(
-            mb, lambda n: synthesize_fastq(n, read_len=36, seed=5))),
+        (f"ERR005195 36 bp {len(err) / 1e6:.0f} MB", err),
         ("SRR-style 76 bp (DNA Huffman)",
-         srr_huffman_corpus(int(mb * 1e6 / 8 / 200), seed=6)),
+         srr_huffman_corpus(int(len(err) / 8 / 200), seed=6)),
         ("variable-length 100 bp", corpus_of(64, lambda n: synthesize_fastq(
             n, read_len=100, seed=7, variable_length=True))),
         ("1000 bp", corpus_of(64, lambda n: synthesize_fastq(
             n, read_len=1000, seed=8))),
         ("SOLiD colour space 50", corpus_of(16, lambda n: solid_corpus(n, 9))),
+        ("long lanes (G = 64, reads of 5.4 kbp)",
+         corpus_of(16, lambda n: long_lane_corpus(n, 10))),
     ]
     kernels.reset_counts()
     for what, data in corpora:
         round_trip(data, dev, what)
-    launches = dict(kernels.LAUNCHES)
-    plain = dict(kernels.PLAIN_ON_CUDA)
-    print(f"main-path launches: {json.dumps(launches)}", flush=True)
-    print(f"plain versions run on CUDA tensors: {json.dumps(plain)}",
-          flush=True)
-    require(all(v > 0 for v in launches.values()),
-            "a kernel of the main path was never launched")
-    require(not any(plain.values()),
-            "a plain version ran on a CUDA tensor in the main path")
-    return launches
+    return check_counts("main path", kernels.LAUNCHES)
+
+
+def phase_files(dev, data: bytes) -> None:
+    """compress_file -> decompress_file of `data` on disk, then the CLI's
+    verify in a child process."""
+    shutil.rmtree(FILE_DIR, ignore_errors=True)
+    os.makedirs(FILE_DIR)
+    try:
+        src = os.path.join(FILE_DIR, "err.fastq")
+        comp = os.path.join(FILE_DIR, "err.ngsct")
+        back = os.path.join(FILE_DIR, "err.back.fastq")
+        with open(src, "wb") as f:
+            f.write(data)
+        stats = []
+        kernels.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        compress.compress_file(src, comp, CodecConfig(), 1, stats, dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        decompress_file(comp, back, None, dev)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        launches = check_counts("file path", ERR_PATH)
+        n_sub = sum(s.n_subblocks for s in stats)
+        require(launches["k5_densify"] == 2 * n_sub,
+                f"file path: K5 launched {launches['k5_densify']} times for "
+                f"{n_sub} sub-blocks")
+        with open(back, "rb") as f:
+            require(f.read() == data, "decompress_file did not restore the "
+                    "input byte for byte")
+        mb = len(data) / 1e6
+        print(f"files: compress_file {mb / (t1 - t0):.2f} MB/s "
+              f"({t1 - t0:.3f} s), decompress_file {mb / (t2 - t1):.2f} MB/s "
+              f"({t2 - t1:.3f} s), {os.path.getsize(comp)} B container, "
+              f"{n_sub} sub-blocks, byte-identical", flush=True)
+        os.remove(comp)
+        os.remove(back)
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "phyngsc_tpu_torch", "verify", src,
+             "--device", "cuda"], cwd=ROOT, capture_output=True, text=True,
+            env=dict(os.environ, PYTHONPATH=ROOT), timeout=600)
+        print(f"python3 -m phyngsc_tpu_torch verify "
+              f"({time.perf_counter() - t0:.1f} s, exit {res.returncode}): "
+              f"{res.stdout.strip()}", flush=True)
+        require(res.returncode == 0, f"verify exited {res.returncode}: "
+                f"{res.stderr[-2000:]}")
+    finally:
+        shutil.rmtree(FILE_DIR, ignore_errors=True)
 
 
 def phase_goldens(dev) -> None:
@@ -407,8 +576,12 @@ def main() -> int:
           f"({kernels.library_path()})", flush=True)
 
     cases = phase_kernels(dev)
-    launches = phase_round_trip(dev, args.mb)
+    err = corpus_of(args.mb, lambda n: synthesize_fastq(n, read_len=36,
+                                                        seed=5))
+    launches = phase_round_trip(dev, err)
+    phase_files(dev, err)
     phase_goldens(dev)
+    phase_device_times(cases)
     require("jax" not in sys.modules or sys.modules["jax"] is None,
             "jax was imported")
 
@@ -419,7 +592,7 @@ def main() -> int:
                      "replaces": replaces, "launches": launches[name],
                      "max_abs_err": max(x["max_abs_err"] for x in c),
                      "ms": c[0]["ms"], "plain_ms": c[0]["plain_ms"],
-                     "cases": c})
+                     "device_ms": c[0]["device_ms"], "cases": c})
     print(card)  # name, power limit: exactly as nvidia-smi prints them
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -2,12 +2,14 @@
 
 Runs the single-device compress -> decompress round trip of every input
 phyngsc_tpu takes on one device (uniform or variable lengths, long reads,
-SOLiD colour space) on an NVIDIA H100, with the K1-K4 kernels hand-written
+SOLiD colour space) on an NVIDIA H100, with the K1-K5 kernels hand-written
 in CUDA under csrc/, and writes the same .ngsct container as phyngsc_tpu,
-byte for byte. Every pipeline entry point
-takes an explicit `device`; CPU tensors take each kernel's plain PyTorch
-version. Host code without jax (config, FASTQ indexing, bit I/O, Huffman
-tables, container framing) is shared with phyngsc_tpu.
+byte for byte. The entry points are phyngsc_tpu's: compress_bytes /
+decompress_bytes, the bounded-memory compress_file / decompress_file, and
+the command line (python -m phyngsc_tpu_torch). Every one takes an explicit
+device; CPU tensors take each kernel's plain PyTorch version. Host code
+without jax (config, FASTQ indexing, bit I/O, Huffman tables, container
+framing, .ngsc import and export) is shared with phyngsc_tpu.
 """
 
 from phyngsc_tpu.config import CodecConfig

@@ -5,14 +5,17 @@
 // (phyngsc_walk_masked) replaces _make_masked_kernel /
 // unpack_substreams_masked_pallas (:698-823).
 //
-// The TPU kernels need every lane's words in a dense (Wmax, Sp) VMEM plane
-// and replace the per-lane LUT read by a 256-column run-compare sum, because
-// Pallas has no per-lane gather. A Hopper thread gathers freely, so each
-// thread reads the LINEAR word stream from its substream's start (exclusive
-// prefix sum of the substream table) and looks its entry up in a full
-// 2^lut_bits LUT, entry = (len << 9) | sym, built on the host. Both walks
-// pick the tree per step, as the TPU kernels read per-step tables: K2 by the
-// position t % Lt, K3 by the slot position t % L (one tree for DNA).
+// Both walks read the (Wmax, Sp) lane-minor word plane that K5
+// (csrc/densify.cu) builds from the linear stream, as the TPU kernels read
+// their dense VMEM plane: word i of lane s sits at plane[i * Sp + s], so the
+// threads of a warp, one lane each, read neighbouring words while their
+// cursors keep pace (adjacent substreams are adjacent records of near-equal
+// size). The TPU kernels replace the per-lane LUT read by a 256-column
+// run-compare sum, because Pallas has no per-lane gather; a Hopper thread
+// gathers freely, so each thread looks its entry up in a full 2^lut_bits
+// LUT, entry = (len << 9) | sym, built on the host. Both walks pick the tree
+// per step, as the TPU kernels read per-step tables: K2 by the position
+// t % Lt, K3 by the slot position t % L (one tree for DNA).
 //
 // Bound: each step is a chain of dependent loads (window -> LUT entry ->
 // cursor), so a walk is latency bound and a sub-block has only S = Rp / G
@@ -21,11 +24,11 @@
 // word per step, so the only load on the chain is the LUT entry, which the
 // read-only cache and L2 serve. Several sub-blocks per launch are later work.
 //
-// Untrusted input: every word read is bounds-checked against n_words (reads
-// past the end give 0), the window is built from a 64-bit pair so no shift
-// is by 32, and every output index is bounded by the lane's slot range, so
-// a corrupt substream table decodes garbage but never reads or writes out
-// of bounds. A tree id outside [0, n_trees) is clamped.
+// Untrusted input: every word read is bounds-checked against Wmax (reads
+// past a lane's rows give 0), the window is built from a 64-bit pair so no
+// shift is by 32, and every output index is bounded by the lane's slot
+// range, so a corrupt substream table decodes garbage but never reads or
+// writes out of bounds. A tree id outside [0, n_trees) is clamped.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -35,22 +38,24 @@ namespace {
 constexpr int kThreads = 64;
 
 struct BitCursor {
-  const uint32_t* words;
-  int64_t n;
-  int64_t wi;  // index of w0
+  const uint32_t* col;  // the lane's column of the plane: word i at col[i * Sp]
+  int Sp;
+  int Wmax;
+  int wi;               // index of w0
   uint32_t w0, w1;
-  int bit;     // consumed bits of w0, in [0, 32)
+  int bit;              // consumed bits of w0, in [0, 32)
 
-  __device__ uint32_t load(int64_t i) const {
-    return (i >= 0 && i < n) ? __ldg(words + i) : 0u;
+  __device__ uint32_t load(int i) const {
+    return i < Wmax ? __ldg(col + static_cast<int64_t>(i) * Sp) : 0u;
   }
-  __device__ void init(const uint32_t* w, int64_t nw, int64_t start) {
-    words = w;
-    n = nw;
-    wi = start;
+  __device__ void init(const uint32_t* plane, int wmax, int sp, int s) {
+    col = plane + s;
+    Sp = sp;
+    Wmax = wmax;
+    wi = 0;
     bit = 0;
-    w0 = load(wi);
-    w1 = load(wi + 1);
+    w0 = load(0);
+    w1 = load(1);
   }
   // the 32 bits at the cursor, MSB first
   __device__ uint32_t window() const {
@@ -70,9 +75,8 @@ struct BitCursor {
 
 // K2: step t of lane s decodes position p = t % Lt of record s*G + t / Lt
 // with tree tree_of_pos[p]; the lane stops after totals[s] steps.
-__global__ void walk_uniform_kernel(const uint32_t* __restrict__ words,
-                                    int64_t n_words,
-                                    const int64_t* __restrict__ word_start,
+__global__ void walk_uniform_kernel(const uint32_t* __restrict__ plane,
+                                    int Wmax, int Sp,
                                     const int32_t* __restrict__ totals,
                                     const int32_t* __restrict__ luts,
                                     const int32_t* __restrict__ tree_of_pos,
@@ -83,7 +87,7 @@ __global__ void walk_uniform_kernel(const uint32_t* __restrict__ words,
   const int total = min(totals[s], G * Lt);
   if (total <= 0) return;  // dead lane: the output stays zero
   BitCursor c;
-  c.init(words, n_words, word_start[s]);
+  c.init(plane, Wmax, Sp, s);
   const int64_t V = int64_t{1} << lut_bits;
   const int shift = 32 - lut_bits;
   uint8_t* row = out + static_cast<int64_t>(s) * G * L;
@@ -112,9 +116,8 @@ __global__ void walk_uniform_kernel(const uint32_t* __restrict__ words,
 enum class Tables { kPlain2, kOneTree, kPerPosition };
 
 template <Tables kTables>
-__global__ void walk_masked_kernel(const uint32_t* __restrict__ words,
-                                   int64_t n_words,
-                                   const int64_t* __restrict__ word_start,
+__global__ void walk_masked_kernel(const uint32_t* __restrict__ plane,
+                                   int Wmax, int Sp,
                                    const int32_t* __restrict__ totals,
                                    const uint8_t* __restrict__ keep,
                                    const int32_t* __restrict__ luts,
@@ -126,7 +129,7 @@ __global__ void walk_masked_kernel(const uint32_t* __restrict__ words,
   const int total = totals[s];
   if (total <= 0) return;
   BitCursor c;
-  c.init(words, n_words, word_start[s]);
+  c.init(plane, Wmax, Sp, s);
   const int64_t V = int64_t{1} << lut_bits;
   const int shift = 32 - lut_bits;
   const int32_t* lut = luts;
@@ -162,26 +165,27 @@ unsigned blocks_for(int S) { return static_cast<unsigned>((S + kThreads - 1) / k
 
 }  // namespace
 
-// out (S*G, L) uint8 must be zeroed by the caller. Returns cudaGetLastError().
-extern "C" int phyngsc_walk_uniform(const void* words, int64_t n_words,
-                                    const void* word_start, const void* totals,
+// plane (Wmax, Sp) uint32 with S <= Sp; out (S*G, L) uint8 must be zeroed
+// by the caller. Returns cudaGetLastError().
+extern "C" int phyngsc_walk_uniform(const void* plane, int Wmax, int Sp,
+                                    const void* totals,
                                     const void* luts, const void* tree_of_pos,
                                     int lut_bits, int S, int G, int Lt, int L,
                                     void* out, void* stream) {
   walk_uniform_kernel<<<blocks_for(S), kThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(words), n_words,
-      static_cast<const int64_t*>(word_start),
+      static_cast<const uint32_t*>(plane), Wmax, Sp,
       static_cast<const int32_t*>(totals), static_cast<const int32_t*>(luts),
       static_cast<const int32_t*>(tree_of_pos), lut_bits, S, G, Lt, L,
       static_cast<uint8_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 
-// out (S*T,) uint8 must be zeroed by the caller; T is a multiple of L. luts
-// (n_trees, 2^lut_bits) and tree_of_pos (L,) may be null when plain2.
-extern "C" int phyngsc_walk_masked(const void* words, int64_t n_words,
-                                   const void* word_start, const void* totals,
+// plane (Wmax, Sp) uint32 with S <= Sp; out (S*T,) uint8 must be zeroed by
+// the caller; T is a multiple of L. luts (n_trees, 2^lut_bits) and
+// tree_of_pos (L,) may be null when plain2.
+extern "C" int phyngsc_walk_masked(const void* plane, int Wmax, int Sp,
+                                   const void* totals,
                                    const void* keep, const void* luts,
                                    const void* tree_of_pos, int n_trees,
                                    int plain2, int lut_bits, int S, int T,
@@ -190,8 +194,7 @@ extern "C" int phyngsc_walk_masked(const void* words, int64_t n_words,
                       : L == 1 ? walk_masked_kernel<Tables::kOneTree>
                                : walk_masked_kernel<Tables::kPerPosition>;
   kernel<<<blocks_for(S), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(words), n_words,
-      static_cast<const int64_t*>(word_start),
+      static_cast<const uint32_t*>(plane), Wmax, Sp,
       static_cast<const int32_t*>(totals), static_cast<const uint8_t*>(keep),
       static_cast<const int32_t*>(luts),
       static_cast<const int32_t*>(tree_of_pos), n_trees, lut_bits, S, T, L,

@@ -1,4 +1,5 @@
-"""Build, bind and launch the hand-written CUDA kernels (csrc/*.cu).
+"""Build, bind and launch the hand-written CUDA kernels (csrc/*.cu): K1
+histogram, K2/K3 walks, K4 lookup, K5 densify.
 
 The sources compile at first use with nvcc into one shared library with a
 plain C interface under build/kernels/ (named by a hash of the sources, so a
@@ -30,9 +31,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 LAUNCHES = {"k1_histogram": 0, "k2_walk_uniform": 0, "k3_walk_masked": 0,
             "k3_walk_masked/plain2": 0, "k3_walk_masked/huffman": 0,
-            "k3_walk_masked/quality": 0, "k4_lookup": 0}
+            "k3_walk_masked/quality": 0, "k4_lookup": 0, "k5_densify": 0}
 PLAIN_ON_CUDA = {"k1_histogram": 0, "k2_walk_uniform": 0, "k3_walk_masked": 0,
-                 "k4_lookup": 0}
+                 "k4_lookup": 0, "k5_densify": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -42,11 +43,12 @@ _I = ctypes.c_int
 _I64 = ctypes.c_int64
 _SIGNATURES = {
     "phyngsc_hist": [_P, _P, _I64, _I, _I, _P, _P],
-    "phyngsc_walk_uniform": [_P, _I64, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                             _P, _P],
-    "phyngsc_walk_masked": [_P, _I64, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                            _I, _P, _P],
+    "phyngsc_walk_uniform": [_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P,
+                             _P],
+    "phyngsc_walk_masked": [_P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                            _P, _P],
     "phyngsc_lookup": [_P, _P, _I64, _I, _I, _P, _P],
+    "phyngsc_densify": [_P, _I64, _P, _P, _I, _I, _I, _P, _P],
 }
 
 
@@ -151,55 +153,56 @@ def histogram(sym: torch.Tensor, mask: torch.Tensor, A: int) -> torch.Tensor:
     return out
 
 
-def _check_walk(words, word_start, lut_bits):
-    _require(words, "words", torch.int32)
-    _require(word_start, "word_start", torch.int64)
+def _check_plane(plane: torch.Tensor, S: int, lut_bits: int) -> None:
+    _require(plane, "plane", torch.int32)
+    if plane.ndim != 2 or S > plane.shape[1]:
+        raise ValueError(f"walk: plane {tuple(plane.shape)} has fewer than "
+                         f"{S} lanes")
     if not 1 <= lut_bits <= 16:
         raise ValueError(f"lut_bits {lut_bits} out of range")
 
 
-def walk_uniform(words: torch.Tensor, word_start: torch.Tensor,
-                 totals: torch.Tensor, luts: torch.Tensor,
-                 tree_of_pos: torch.Tensor, lut_bits: int, G: int, Lt: int,
-                 L: int) -> torch.Tensor:
-    """K2: uniform-length walk -> (S*G, L) uint8 symbols (0 past each lane's
-    total and at positions >= Lt)."""
-    _check_walk(words, word_start, lut_bits)
+def walk_uniform(plane: torch.Tensor, totals: torch.Tensor,
+                 luts: torch.Tensor, tree_of_pos: torch.Tensor, lut_bits: int,
+                 G: int, Lt: int, L: int) -> torch.Tensor:
+    """K2: uniform-length walk of the S = len(totals) lanes of the (Wmax, Sp)
+    word plane -> (S*G, L) uint8 symbols (0 past each lane's total and at
+    positions >= Lt)."""
     _require(totals, "totals", torch.int32)
+    S = totals.shape[0]
+    _check_plane(plane, S, lut_bits)
     _require(luts, "luts", torch.int32)
     _require(tree_of_pos, "tree_of_pos", torch.int32)
-    S = word_start.shape[0]
-    if (totals.shape != (S,) or luts.ndim != 2
-            or luts.shape[1] != 1 << lut_bits or tree_of_pos.shape[0] < Lt
-            or Lt > L):
+    if (totals.ndim != 1 or luts.ndim != 2 or luts.shape[1] != 1 << lut_bits
+            or tree_of_pos.shape[0] < Lt or Lt > L):
         raise ValueError("walk_uniform: bad shapes")
-    out = torch.zeros((S * G, L), dtype=torch.uint8, device=words.device)
+    out = torch.zeros((S * G, L), dtype=torch.uint8, device=plane.device)
     if S == 0:
         return out
     rc = build().phyngsc_walk_uniform(
-        words.data_ptr(), words.shape[0], word_start.data_ptr(),
-        totals.data_ptr(), luts.data_ptr(), tree_of_pos.data_ptr(), lut_bits,
-        S, G, Lt, L, out.data_ptr(), _stream())
+        plane.data_ptr(), plane.shape[0], plane.shape[1], totals.data_ptr(),
+        luts.data_ptr(), tree_of_pos.data_ptr(), lut_bits, S, G, Lt, L,
+        out.data_ptr(), _stream())
     _check(rc, "k2_walk_uniform")
     _count(LAUNCHES, "k2_walk_uniform")
     return out
 
 
-def walk_masked(words: torch.Tensor, word_start: torch.Tensor,
-                totals: torch.Tensor, keep: torch.Tensor, luts, tree_of_pos,
-                lut_bits: int, plain2: bool) -> torch.Tensor:
-    """K3: masked walk over (S, T) slots -> (S, T) uint8 symbols (0 where
-    keep is unset). Slot t takes tree tree_of_pos[t % L] of the
-    (n_trees, 2^lut_bits) int32 luts, L = len(tree_of_pos) dividing T; both
-    are None for plain2. Counted as the plain2, huffman (one position, the
-    DNA stream) or quality (per-position trees) variant."""
-    _check_walk(words, word_start, lut_bits)
+def walk_masked(plane: torch.Tensor, totals: torch.Tensor,
+                keep: torch.Tensor, luts, tree_of_pos, lut_bits: int,
+                plain2: bool) -> torch.Tensor:
+    """K3: masked walk of the S = len(keep) lanes of the (Wmax, Sp) word
+    plane over (S, T) slots -> (S, T) uint8 symbols (0 where keep is unset).
+    Slot t takes tree tree_of_pos[t % L] of the (n_trees, 2^lut_bits) int32
+    luts, L = len(tree_of_pos) dividing T; both are None for plain2. Counted
+    as the plain2, huffman (one position, the DNA stream) or quality
+    (per-position trees) variant."""
     _require(totals, "totals", torch.int32)
     _require(keep, "keep", torch.uint8)
-    S = word_start.shape[0]
-    if keep.ndim != 2 or keep.shape[0] != S or totals.shape != (S,):
+    if keep.ndim != 2 or totals.shape != keep.shape[:1]:
         raise ValueError("walk_masked: bad shapes")
-    T = keep.shape[1]
+    S, T = keep.shape
+    _check_plane(plane, S, lut_bits)
     n_trees, L = 1, 1
     if not plain2:
         _require(luts, "luts", torch.int32)
@@ -208,13 +211,12 @@ def walk_masked(words: torch.Tensor, word_start: torch.Tensor,
         if (luts.ndim != 2 or luts.shape[1] != 1 << lut_bits or n_trees < 1
                 or tree_of_pos.ndim != 1 or L < 1 or T % L):
             raise ValueError("walk_masked: bad LUT or tree shapes")
-    out = torch.zeros((S, T), dtype=torch.uint8, device=words.device)
+    out = torch.zeros((S, T), dtype=torch.uint8, device=plane.device)
     if S == 0:
         return out
     rc = build().phyngsc_walk_masked(
-        words.data_ptr(), words.shape[0], word_start.data_ptr(),
-        totals.data_ptr(), keep.data_ptr(),
-        None if plain2 else luts.data_ptr(),
+        plane.data_ptr(), plane.shape[0], plane.shape[1], totals.data_ptr(),
+        keep.data_ptr(), None if plain2 else luts.data_ptr(),
         None if plain2 else tree_of_pos.data_ptr(), n_trees, int(plain2),
         lut_bits, S, T, L, out.data_ptr(), _stream())
     _check(rc, "k3_walk_masked")
@@ -239,4 +241,26 @@ def lookup(sym: torch.Tensor, tab: torch.Tensor) -> torch.Tensor:
                                 tab.shape[1], out.data_ptr(), _stream())
     _check(rc, "k4_lookup")
     _count(LAUNCHES, "k4_lookup")
+    return out
+
+
+def densify(words: torch.Tensor, word_start: torch.Tensor,
+            sub_n_words: torch.Tensor, Wmax: int, Sp: int) -> torch.Tensor:
+    """K5: (N,) int32 linear words (uint32 bits), (S,) int64 lane starts and
+    (S,) int32 lane word counts -> (Wmax, Sp) int32 plane, out[w, s] =
+    words[word_start[s] + w] for w < sub_n_words[s], else 0 (pad lanes
+    s >= S and reads past the words included)."""
+    _require(words, "words", torch.int32)
+    _require(word_start, "word_start", torch.int64)
+    _require(sub_n_words, "sub_n_words", torch.int32)
+    S = sub_n_words.shape[0]
+    if (words.ndim != 1 or word_start.shape != (S,) or S > Sp
+            or not 1 <= Wmax < 1 << 31 or not 1 <= Sp < 1 << 31):
+        raise ValueError(f"densify: bad shapes S={S} Wmax={Wmax} Sp={Sp}")
+    out = torch.empty((Wmax, Sp), dtype=torch.int32, device=words.device)
+    rc = build().phyngsc_densify(words.data_ptr(), words.shape[0],
+                                 word_start.data_ptr(), sub_n_words.data_ptr(),
+                                 S, Wmax, Sp, out.data_ptr(), _stream())
+    _check(rc, "k5_densify")
+    _count(LAUNCHES, "k5_densify")
     return out

@@ -3,8 +3,8 @@ translation and 2-bit/Huffman coding (port of phyngsc_tpu/models/dna.py).
 
 analyze runs on K1 (ops/histogram.py); the Huffman encode's code lookup on
 K4 (ops/lookup.py); decode_plain_walk and decode_huffman_walk on K3
-(ops/bitpack.py). Mode planning, delta detection and the stream header are
-host code.
+(ops/bitpack.py), over the word plane that K5 builds. Mode planning, delta
+detection and the stream header are host code.
 """
 
 from __future__ import annotations
@@ -218,30 +218,29 @@ def encode_device(seq: torch.Tensor, keep: torch.Tensor,
     return words, lay["sub_n_words"], lay["total_words"]
 
 
-def decode_huffman_walk(words: torch.Tensor, sub_n_words: torch.Tensor,
-                        keep: torch.Tensor, lut: torch.Tensor,
-                        records_per_substream: int,
+def decode_huffman_walk(plane: torch.Tensor, keep: torch.Tensor,
+                        lut: torch.Tensor, records_per_substream: int,
                         lut_bits: int) -> torch.Tensor:
-    """Huffman DNA decode on K3: kept slots (record, position) consume the
-    lane's next symbol. keep (S*G, L) bool, lut (2^lut_bits,) int32.
+    """Huffman DNA decode on K3 (port of decode_huffman_walk): kept slots
+    (record, position) consume the lane's next symbol. plane (Wmax, Sp)
+    from bitpack.dense_words, keep (S*G, L) bool, lut (2^lut_bits,) int32.
     Returns (S*G, L) uint8 (0 where not kept)."""
     R, L = keep.shape
     S = R // records_per_substream
     tree = torch.zeros(1, dtype=torch.int32, device=keep.device)
-    syms = bitpack.walk_masked(words, sub_n_words, keep.reshape(S, -1),
-                               lut[None, :], tree, lut_bits, plain2=False)
+    syms = bitpack.walk_masked(plane, keep.reshape(S, -1), lut[None, :], tree,
+                               lut_bits, plain2=False)
     return syms.reshape(R, L)
 
 
-def decode_plain_walk(words: torch.Tensor, sub_n_words: torch.Tensor,
-                      keep: torch.Tensor,
+def decode_plain_walk(plane: torch.Tensor, keep: torch.Tensor,
                       records_per_substream: int) -> torch.Tensor:
-    """2-bit plain DNA decode on K3 (plain2). Returns (S*G, L) uint8 bases
-    (0 where not kept)."""
+    """2-bit plain DNA decode on K3 (plain2; port of decode_plain_walk).
+    Returns (S*G, L) uint8 bases (0 where not kept)."""
     R, L = keep.shape
     S = R // records_per_substream
-    syms = bitpack.walk_masked(words, sub_n_words, keep.reshape(S, -1), None,
-                               None, 12, plain2=True).reshape(R, L)
+    syms = bitpack.walk_masked(plane, keep.reshape(S, -1), None, None, 12,
+                               plain2=True).reshape(R, L)
     return torch.where(keep, _table(ACGT, keep.device)[syms.long()], 0).to(
         torch.uint8)
 

@@ -4,8 +4,8 @@ phyngsc_tpu/models/quality.py).
 analyze runs on K1 (ops/histogram.py); encode is the per-position code
 lookup on K4 (ops/lookup.py), then grouping and the scatter pack in plain
 torch; decode_walk (uniform lengths) runs on K2 and decode_walk_masked
-(variable lengths) on K3 (ops/bitpack.py). Table building and the stream
-header are host code.
+(variable lengths) on K3 (ops/bitpack.py), both over the word plane that
+K5 builds. Table building and the stream header are host code.
 """
 
 from __future__ import annotations
@@ -196,39 +196,38 @@ def encode_device(qual: torch.Tensor, lens: torch.Tensor,
 
 # -- decode -----------------------------------------------------------------
 
-def decode_walk(words: torch.Tensor, sub_n_words: torch.Tensor,
-                lens: torch.Tensor, luts: torch.Tensor, L: int, Lt: int,
-                records_per_substream: int, lut_bits: int,
+def decode_walk(plane: torch.Tensor, lens: torch.Tensor, luts: torch.Tensor,
+                L: int, Lt: int, records_per_substream: int, lut_bits: int,
                 legacy: bool = False) -> torch.Tensor:
-    """Uniform-length decode on K2: words (N,) int32 linear stream,
-    sub_n_words (S,), lens (S*G,) record lengths (Lt or 0), luts
-    (n_trees, 2^lut_bits) int32. Returns (S*G, L) uint8 (0 where invalid)."""
+    """Uniform-length decode on K2 (port of decode_device_walk): plane
+    (Wmax, Sp) int32 word plane from bitpack.dense_words, lens (S*G,) record
+    lengths (Lt or 0), luts (n_trees, 2^lut_bits) int32. Returns (S*G, L)
+    uint8 (0 where invalid)."""
     G = records_per_substream
-    S = sub_n_words.shape[0]
+    S = lens.shape[0] // G
     n_trees = luts.shape[0]
     totals = lens.reshape(S, G).sum(dim=1, dtype=torch.int32)
-    tid = tree_of_position(torch.arange(max(Lt, 1), device=words.device),
+    tid = tree_of_position(torch.arange(max(Lt, 1), device=plane.device),
                            n_trees, L, legacy)
-    return bitpack.walk_uniform(words, sub_n_words, totals, luts, tid,
-                                lut_bits, G, Lt, L)
+    return bitpack.walk_uniform(plane, totals, luts, tid, lut_bits, G, Lt, L)
 
 
-def decode_walk_masked(words: torch.Tensor, sub_n_words: torch.Tensor,
-                       lens: torch.Tensor, luts: torch.Tensor, L: int,
+def decode_walk_masked(plane: torch.Tensor, lens: torch.Tensor,
+                       luts: torch.Tensor, L: int,
                        records_per_substream: int, lut_bits: int,
                        legacy: bool = False) -> torch.Tensor:
     """Variable-length decode on K3 (port of decode_device_walk_masked): slot
     t = g*L + p of lane s is position p of record s*G + g, consumes a symbol
     only where p < its record's length, and takes tree
-    tree_of_position(p). lens (S*G,) record lengths. Returns (S*G, L) uint8
-    (0 where invalid)."""
+    tree_of_position(p). plane (Wmax, Sp) from bitpack.dense_words, lens
+    (S*G,) record lengths. Returns (S*G, L) uint8 (0 where invalid)."""
     G = records_per_substream
-    S = sub_n_words.shape[0]
+    S = lens.shape[0] // G
     slots = valid_mask(lens, L).reshape(S, G * L)
-    tid = tree_of_position(torch.arange(L, device=words.device),
+    tid = tree_of_position(torch.arange(L, device=plane.device),
                            luts.shape[0], L, legacy)
-    syms = bitpack.walk_masked(words, sub_n_words, slots, luts, tid,
-                               lut_bits, plain2=False)
+    syms = bitpack.walk_masked(plane, slots, luts, tid, lut_bits,
+                               plain2=False)
     return syms.reshape(S * G, L)
 
 

@@ -4,17 +4,21 @@ Encode: substream_layout + pack_bits_scatter in plain torch. Every symbol
 owns the bit span [offset, offset + len) of its substream; disjoint spans
 make add == or, so an int64 scatter_add is exact in any order.
 
-Decode: walk_uniform (K2) and walk_masked (K3) wrap the hand-written CUDA
-walks (csrc/walk.cu); CPU tensors take their plain versions, which walk all
-substreams in lockstep, one step per loop iteration. Words travel as int32
-tensors holding the uint32 bits, and are widened to int64 for bit work.
+Decode: dense_words (K5, csrc/densify.cu) lays the linear word stream out
+as the (Wmax, Sp) lane-minor plane, word w of lane s at [w, s], and
+walk_uniform (K2) and walk_masked (K3) walk that plane (csrc/walk.cu); CPU
+tensors take the plain versions, the walks stepping all lanes in lockstep,
+one step per loop iteration. Words travel as int32 tensors holding the
+uint32 bits, and are widened to int64 for bit work.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from phyngsc_tpu_torch import kernels
+from phyngsc_tpu_torch.ops.bitpack_host import dense_geometry
 
 WORD_BITS = 32
 _MASK32 = 0xFFFFFFFF
@@ -68,30 +72,82 @@ def pack_bits_scatter(codes: torch.Tensor, lens: torch.Tensor,
 
 
 def word_starts(sub_n_words: torch.Tensor) -> torch.Tensor:
-    """Exclusive prefix sum of the substream table: each lane's first word."""
+    """Exclusive prefix sum of the substream table: each lane's first word,
+    int64."""
     sub = sub_n_words.long()
     return torch.cumsum(sub, dim=0) - sub
 
 
-def _walk_plain(words, word_start, luts, tree_step, consume, lut_bits,
-                plain2):
-    """The LUT walk of every lane in lockstep: step t of lane s reads the
-    32-bit window at its cursor, looks (len << 9) | sym up in
-    luts[tree_step[t]] (or takes (2 << 9) | top two bits when plain2), and
-    emits sym and advances by len only where consume[s, t]. Reads past the
-    end of `words` give 0. Returns (S, T) int64 symbols, 0 where not
-    consumed."""
+def lane_words_max(G: int, L: int, max_code_len: int) -> int:
+    """The most words a lane of a well-formed sub-block holds: G records of
+    at most L symbols, each code at most max_code_len bits, one word of
+    slack."""
+    return -(-G * L * max_code_len // WORD_BITS) + 1
+
+
+def plane_geometry(sub_n_words: np.ndarray, G: int, L: int,
+                   max_code_len: int) -> tuple:
+    """(Wmax, Sp) of the walk plane for a host substream table
+    (bitpack_host.dense_geometry: lanes padded to 128, rows bucketed to
+    256). Raises ValueError, before anything is allocated for the table, on
+    a lane longer than lane_words_max(G, L, max_code_len), which only a
+    corrupt table holds."""
+    sub = np.asarray(sub_n_words)
+    limit = lane_words_max(G, L, max_code_len)
+    if sub.size and int(sub.max()) > limit:
+        raise ValueError(f"corrupt substream table: a lane of "
+                         f"{int(sub.max())} words, more than {limit}")
+    return dense_geometry(sub)
+
+
+def dense_words_plain(words: torch.Tensor, sub_n_words: torch.Tensor,
+                      Wmax: int, Sp: int) -> torch.Tensor:
+    """Plain version of K5: (N,) int32 linear words -> (Wmax, Sp) int32
+    plane, out[w, s] = words[start[s] + w] for w < sub_n_words[s] (start
+    the exclusive prefix sum), 0 elsewhere: past a lane's words, in pad
+    lanes s >= S and where start[s] + w >= N."""
+    kernels.note_plain("k5_densify", words)
+    sub = sub_n_words.long()
+    S, n = sub.shape[0], words.shape[0]
+    w = torch.arange(Wmax, device=words.device)[:, None]
+    src = word_starts(sub)[None, :] + w
+    ok = (w < sub[None, :]) & (src < n)
+    padded = torch.cat([words, words.new_zeros(1)])
+    out = torch.zeros((Wmax, Sp), dtype=torch.int32, device=words.device)
+    out[:, :S] = padded[torch.where(ok, src, n)]
+    return out
+
+
+def dense_words(words: torch.Tensor, sub_n_words: torch.Tensor, Wmax: int,
+                Sp: int) -> torch.Tensor:
+    """K5 wrapper: see dense_words_plain. Wmax and Sp come from
+    plane_geometry of the host table."""
+    if words.device.type == "cpu":
+        return dense_words_plain(words, sub_n_words, Wmax, Sp)
+    return kernels.densify(words.contiguous(),
+                           word_starts(sub_n_words).contiguous(),
+                           sub_n_words.to(torch.int32).contiguous(), Wmax, Sp)
+
+
+def _walk_plain(plane, luts, tree_step, consume, lut_bits, plain2):
+    """The LUT walk of lanes 0..S-1 of the (Wmax, Sp) plane in lockstep:
+    step t of lane s reads the 32-bit window at its cursor, looks
+    (len << 9) | sym up in luts[tree_step[t]] (or takes (2 << 9) | top two
+    bits when plain2), and emits sym and advances by len only where
+    consume[s, t]. Reads past row Wmax give 0. Returns (S, T) int64
+    symbols, 0 where not consumed."""
     S, T = consume.shape
-    dev = words.device
-    w = torch.cat([words.long() & _MASK32, torch.zeros(2, dtype=torch.int64,
-                                                       device=dev)])
+    dev = plane.device
+    w = torch.cat([plane[:, :S].long() & _MASK32,
+                   torch.zeros((2, S), dtype=torch.int64, device=dev)])
     last = w.shape[0] - 1
-    wi = word_start.long().clone()
+    lanes = torch.arange(S, device=dev)
+    wi = torch.zeros(S, dtype=torch.int64, device=dev)
     bit = torch.zeros(S, dtype=torch.int64, device=dev)
     out = torch.zeros((S, T), dtype=torch.int64, device=dev)
     for t in range(T):
-        w0 = w[wi.clamp(0, last)]
-        w1 = w[(wi + 1).clamp(0, last)]
+        w0 = w[wi.clamp(max=last), lanes]
+        w1 = w[(wi + 1).clamp(max=last), lanes]
         win = ((w0 << bit) | (w1 >> (WORD_BITS - bit))) & _MASK32
         if plain2:
             e = (2 << 9) | (win >> 30)
@@ -105,69 +161,68 @@ def _walk_plain(words, word_start, luts, tree_step, consume, lut_bits,
     return out
 
 
-def walk_uniform_plain(words, sub_n_words, totals, luts, tree_of_pos,
-                       lut_bits: int, G: int, Lt: int, L: int) -> torch.Tensor:
-    """Plain version of K2: lane s decodes totals[s] symbols, step t being
-    position t % Lt (tree tree_of_pos[t % Lt]) of record s*G + t // Lt.
-    Returns (S*G, L) uint8, 0 past each lane's total and at positions >= Lt."""
-    kernels.note_plain("k2_walk_uniform", words)
-    S = sub_n_words.shape[0]
-    dev = words.device
+def walk_uniform_plain(plane, totals, luts, tree_of_pos, lut_bits: int,
+                       G: int, Lt: int, L: int) -> torch.Tensor:
+    """Plain version of K2: lane s < S = len(totals) of the (Wmax, Sp) plane
+    decodes totals[s] symbols, step t being position t % Lt (tree
+    tree_of_pos[t % Lt]) of record s*G + t // Lt. Returns (S*G, L) uint8, 0
+    past each lane's total and at positions >= Lt."""
+    kernels.note_plain("k2_walk_uniform", plane)
+    S = totals.shape[0]
+    dev = plane.device
     steps = torch.arange(G * Lt, device=dev)
     consume = steps[None, :] < totals.long()[:, None]
     tree_step = tree_of_pos.long()[:Lt].repeat(G)
-    syms = _walk_plain(words, word_starts(sub_n_words), luts.long(),
-                       tree_step, consume, lut_bits, False)
+    syms = _walk_plain(plane, luts.long(), tree_step, consume, lut_bits,
+                       False)
     out = torch.zeros((S * G, L), dtype=torch.uint8, device=dev)
     out[:, :Lt] = syms.reshape(S * G, Lt).to(torch.uint8)
     return out
 
 
-def walk_uniform(words, sub_n_words, totals, luts, tree_of_pos,
-                 lut_bits: int, G: int, Lt: int, L: int) -> torch.Tensor:
-    """K2 wrapper. words (N,) int32 (uint32 bits), sub_n_words (S,), totals
-    (S,) symbols per lane, luts (n_trees, 2^lut_bits) int32 entries
+def walk_uniform(plane, totals, luts, tree_of_pos, lut_bits: int, G: int,
+                 Lt: int, L: int) -> torch.Tensor:
+    """K2 wrapper. plane (Wmax, Sp) int32 (uint32 bits) from dense_words,
+    totals (S,) symbols per lane, luts (n_trees, 2^lut_bits) int32 entries
     (len << 9) | sym, tree_of_pos (>= Lt,) int32. Returns (S*G, L) uint8."""
-    if words.device.type == "cpu":
-        return walk_uniform_plain(words, sub_n_words, totals, luts,
-                                  tree_of_pos, lut_bits, G, Lt, L)
+    if plane.device.type == "cpu":
+        return walk_uniform_plain(plane, totals, luts, tree_of_pos, lut_bits,
+                                  G, Lt, L)
     return kernels.walk_uniform(
-        words.contiguous(), word_starts(sub_n_words).contiguous(),
-        totals.to(torch.int32).contiguous(), luts.to(torch.int32).contiguous(),
+        plane.contiguous(), totals.to(torch.int32).contiguous(),
+        luts.to(torch.int32).contiguous(),
         tree_of_pos.to(torch.int32).contiguous(), lut_bits, G, Lt, L)
 
 
-def walk_masked_plain(words, sub_n_words, keep, luts, tree_of_pos,
-                      lut_bits: int, plain2: bool) -> torch.Tensor:
-    """Plain version of K3: slot t of lane s consumes the lane's next symbol
-    only where keep[s, t] is set, looking it up in tree tree_of_pos[t % L]
-    (clamped to the tree count) of luts. keep (S, T); luts (n_trees,
-    2^lut_bits) int32 and tree_of_pos (L,) with L dividing T, or both None
-    for plain2 (fixed 2-bit codes). Returns (S, T) uint8, 0 where keep is
-    unset."""
-    kernels.note_plain("k3_walk_masked", words)
+def walk_masked_plain(plane, keep, luts, tree_of_pos, lut_bits: int,
+                      plain2: bool) -> torch.Tensor:
+    """Plain version of K3: slot t of lane s < S = len(keep) of the
+    (Wmax, Sp) plane consumes the lane's next symbol only where keep[s, t]
+    is set, looking it up in tree tree_of_pos[t % L] (clamped to the tree
+    count) of luts. keep (S, T); luts (n_trees, 2^lut_bits) int32 and
+    tree_of_pos (L,) with L dividing T, or both None for plain2 (fixed
+    2-bit codes). Returns (S, T) uint8, 0 where keep is unset."""
+    kernels.note_plain("k3_walk_masked", plane)
     S, T = keep.shape
-    tree_step = torch.zeros(T, dtype=torch.int64, device=words.device)
+    tree_step = torch.zeros(T, dtype=torch.int64, device=plane.device)
     if not plain2:
         luts = luts.long()
         tid = tree_of_pos.long().clamp(0, luts.shape[0] - 1)
         tree_step = tid.repeat(T // tid.shape[0])
-    syms = _walk_plain(words, word_starts(sub_n_words), luts, tree_step,
-                       keep.bool(), lut_bits, plain2)
+    syms = _walk_plain(plane, luts, tree_step, keep.bool(), lut_bits, plain2)
     return syms.to(torch.uint8)
 
 
-def walk_masked(words, sub_n_words, keep, luts, tree_of_pos, lut_bits: int,
+def walk_masked(plane, keep, luts, tree_of_pos, lut_bits: int,
                 plain2: bool) -> torch.Tensor:
     """K3 wrapper; see walk_masked_plain."""
-    if words.device.type == "cpu":
-        return walk_masked_plain(words, sub_n_words, keep, luts, tree_of_pos,
-                                 lut_bits, plain2)
+    if plane.device.type == "cpu":
+        return walk_masked_plain(plane, keep, luts, tree_of_pos, lut_bits,
+                                 plain2)
     keep8 = keep.to(torch.uint8).contiguous()
     totals = keep8.sum(dim=1, dtype=torch.int32)
     if not plain2:
         luts = luts.to(torch.int32).contiguous()
         tree_of_pos = tree_of_pos.to(torch.int32).contiguous()
-    return kernels.walk_masked(
-        words.contiguous(), word_starts(sub_n_words).contiguous(), totals,
-        keep8, luts, tree_of_pos, lut_bits, plain2)
+    return kernels.walk_masked(plane.contiguous(), totals, keep8, luts,
+                               tree_of_pos, lut_bits, plain2)

@@ -1,7 +1,8 @@
 """Host (numpy) bit-packing twins used by the title codec and the decoders.
 
-Copied verbatim from phyngsc_tpu/ops/bitpack.py:303-432, host code in a
-module that imports jax; the port never imports jax, so it keeps the copy.
+Copied from phyngsc_tpu/ops/bitpack.py:303-432 (verbatim) and 1039-1048 (the
+walk plane's geometry, its padding made constants), host code in a module
+that imports jax; the port never imports jax, so it keeps the copy.
 """
 
 from __future__ import annotations
@@ -141,3 +142,19 @@ def bytes_to_words(data: bytes) -> np.ndarray:
         data = data + b"\x00" * pad
     return np.frombuffer(data, dtype=">u4").astype(np.uint32)
 
+
+#: the walk plane's lane padding and row bucket (phyngsc_tpu buckets rows so
+#: sub-blocks share compiled executables; here they only fix the layout)
+LANE_PAD = 128
+ROW_BUCKET = 256
+
+
+def dense_geometry(sub_n_words: np.ndarray) -> tuple:
+    """(Wmax, Sp) plane geometry for the walks: lanes padded to LANE_PAD,
+    rows bucketed to ROW_BUCKET."""
+    sub = np.asarray(sub_n_words)
+    S = sub.shape[0]
+    Sp = max(LANE_PAD, -(-S // LANE_PAD) * LANE_PAD)
+    Wmax = max(int(sub.max()) if S else 0, 1)
+    Wmax = -(-Wmax // ROW_BUCKET) * ROW_BUCKET
+    return Wmax, Sp

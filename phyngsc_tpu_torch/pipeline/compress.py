@@ -5,10 +5,12 @@ windows, encodes sub-blocks through the port's subblock stages
 (software-pipelined: host stages A and C on a thread pool, stage B and every
 bucket decision on the calling thread in task order, all device work on
 PyTorch's current stream), frames them into fixed-size blocks and writes the
-footer. The host partitioning, indexing, framing and footer are
-phyngsc_tpu's own modules; the driver functions and resolve_substream are
-copied from phyngsc_tpu/pipeline/compress.py (which imports jax). Sharded
-encode (data_shards > 1) is a later slice.
+footer. compress_file streams a memmapped input to a file; stats_out
+collects a CompressStats per writer. The host partitioning, indexing,
+framing and footer are phyngsc_tpu's own modules; the driver functions,
+CompressStats and resolve_substream are copied from
+phyngsc_tpu/pipeline/compress.py (which imports jax). Sharded encode
+(data_shards > 1) is a later slice.
 """
 
 from __future__ import annotations
@@ -17,6 +19,8 @@ import concurrent.futures as cf
 import dataclasses
 import io
 import os
+import threading
+import time
 from typing import List, Optional
 
 import numpy as np
@@ -30,6 +34,18 @@ from phyngsc_tpu.utils.shapes import BucketCtx, bucket_length
 from phyngsc_tpu_torch import host_runtime
 from phyngsc_tpu_torch.device import resolve
 from phyngsc_tpu_torch.pipeline import subblock as sbmod
+
+
+@dataclasses.dataclass
+class CompressStats:
+    """Per-writer report, the analogue of the reference's exit table
+    (COMP_TIME / N_BLOCK / N_SUBBLOCKS, phyNGSC.cpp:1062-1066)."""
+    writer_id: int
+    seconds: float
+    n_blocks: int
+    n_subblocks: int
+    input_bytes: int
+    output_bytes: int
 
 
 def iter_subblock_tasks(buf: np.ndarray, regions, cfg: CodecConfig):
@@ -61,26 +77,41 @@ def iter_subblock_tasks(buf: np.ndarray, regions, cfg: CodecConfig):
 
 
 def compress_bytes(data: bytes, cfg: Optional[CodecConfig] = None,
-                   n_writers: int = 1, device="cuda") -> bytes:
+                   n_writers: int = 1, device="cuda",
+                   stats_out: Optional[list] = None) -> bytes:
     return compress_array(np.frombuffer(data, dtype=np.uint8), cfg,
-                          n_writers, device)
+                          n_writers, device, stats_out)
 
 
 def compress_array(buf: np.ndarray, cfg: Optional[CodecConfig] = None,
-                   n_writers: int = 1, device="cuda") -> bytes:
+                   n_writers: int = 1, device="cuda",
+                   stats_out: Optional[list] = None) -> bytes:
     sink = io.BytesIO()
-    compress_to_file(buf, sink, cfg, n_writers, device)
+    compress_to_file(buf, sink, cfg, n_writers, device, stats_out)
     return sink.getvalue()
 
 
 def encode_subblocks_pipelined(buf: np.ndarray, regions, cfg: CodecConfig,
-                               sink, device) -> int:
+                               sink, device,
+                               writer_seconds: Optional[list] = None) -> int:
     """Software-pipelined A/B/C encode over every sub-block of `regions`;
-    calls sink(region_pos, payload) on the calling thread in task order.
-    Returns the task count."""
+    calls sink(region_pos, payload) on the calling thread in task order and
+    adds each stage's seconds to writer_seconds[region_pos]. Returns the
+    task count."""
     device = resolve(device)
     buckets = BucketCtx()  # history-dependent: picked in task order only
     G = cfg.records_per_substream
+    if writer_seconds is None:
+        writer_seconds = [0.0] * len(regions)
+    t_lock = threading.Lock()
+
+    def _timed(w, fn, *args):
+        t0 = time.perf_counter()
+        r = fn(*args)
+        with t_lock:
+            writer_seconds[w] += time.perf_counter() - t0
+        return r
+
     a_q: List = []  # [(writer_pos, Future[_StageA])]
     b_q: List = []  # [(writer_pos, Future[bytes])]
     n_tasks = 0
@@ -89,8 +120,9 @@ def encode_subblocks_pipelined(buf: np.ndarray, regions, cfg: CodecConfig,
 
         def _advance_b():
             w, fa = a_q.pop(0)
-            b = sbmod.stage_b(fa.result(), cfg)
-            b_q.append((w, executor.submit(sbmod.stage_c, b, cfg)))
+            b = _timed(w, sbmod.stage_b, fa.result(), cfg)
+            b_q.append((w, executor.submit(_timed, w, sbmod.stage_c, b,
+                                           cfg)))
 
         def _advance_c():
             w, fc = b_q.pop(0)
@@ -101,7 +133,8 @@ def encode_subblocks_pipelined(buf: np.ndarray, regions, cfg: CodecConfig,
             n_tasks += 1
             rp = buckets.pick(idx_slice.n_records, G)
             a_q.append((w, executor.submit(
-                sbmod.stage_a, buf, idx_slice, cfg, device, executor, rp)))
+                _timed, w, sbmod.stage_a, buf, idx_slice, cfg, device,
+                executor, rp)))
             if len(a_q) >= depth:
                 _advance_b()
             if len(b_q) >= depth:
@@ -138,9 +171,13 @@ def resolve_substream(buf: np.ndarray, cfg: CodecConfig) -> CodecConfig:
 
 
 def compress_to_file(buf: np.ndarray, out, cfg: Optional[CodecConfig] = None,
-                     n_writers: int = 1, device="cuda") -> None:
+                     n_writers: int = 1, device="cuda",
+                     stats_out: Optional[list] = None) -> None:
     """Streaming driver: writes each fixed-size block to `out` (any
-    .write()-able) the moment it fills, then the footer."""
+    .write()-able) the moment it fills, then the footer. Memory stays
+    O(pipeline_depth sub-blocks + one partial block) whatever the input
+    size; `buf` may be an np.memmap. stats_out, a list, receives one
+    CompressStats per writer."""
     cfg = resolve_substream(buf, cfg or CodecConfig())
     if cfg.data_shards > 1:
         raise sbmod._not_in_slice("sharded encode (data_shards > 1)")
@@ -151,10 +188,13 @@ def compress_to_file(buf: np.ndarray, out, cfg: Optional[CodecConfig] = None,
     finished = [False] * len(regions)
     cbo: List[int] = []
     last_block_sizes = [0] * len(regions)
+    n_subblocks = [0] * len(regions)
+    out_bytes = [0] * len(regions)
 
     def _write_block(b: blockmod.Block) -> None:
         cbo.append(b.writer_id)
         last_block_sizes[b.writer_id] = len(b.payload)
+        out_bytes[b.writer_id] += len(b.payload)
         out.write(b.payload)
 
     def _finish_writer(w: int) -> None:
@@ -168,12 +208,26 @@ def compress_to_file(buf: np.ndarray, out, cfg: Optional[CodecConfig] = None,
         # their final partial blocks first, keeping writer-major order
         for v in range(w):
             _finish_writer(v)
+        n_subblocks[w] += 1
         for b in assemblers[w].add(payload):
             _write_block(b)
 
-    encode_subblocks_pipelined(buf, regions, cfg, _sink, device)
+    writer_seconds = [0.0] * len(regions)
+    encode_subblocks_pipelined(buf, regions, cfg, _sink, device,
+                               writer_seconds)
     for w in range(len(regions)):
         _finish_writer(w)
+
+    if stats_out is not None:
+        for w, reg in enumerate(regions):
+            stats_out.append(CompressStats(
+                writer_id=reg.writer_id,
+                seconds=writer_seconds[w],
+                n_blocks=assemblers[w].n_blocks,
+                n_subblocks=n_subblocks[w],
+                input_bytes=reg.end - reg.start,
+                output_bytes=out_bytes[w],
+            ))
 
     foot = footermod.Footer(
         fastq_size=int(buf.shape[0]),
@@ -187,3 +241,14 @@ def compress_to_file(buf: np.ndarray, out, cfg: Optional[CodecConfig] = None,
         max_code_len=cfg.max_code_len,
     )
     out.write(footermod.write_footer(foot))
+
+
+def compress_file(in_path: str, out_path: str,
+                  cfg: Optional[CodecConfig] = None, n_writers: int = 1,
+                  stats_out: Optional[list] = None, device="cuda") -> None:
+    """Bounded-memory file-to-file compression: memmapped input, blocks
+    written as they fill, so host memory is flat in the input size."""
+    buf = (np.memmap(in_path, dtype=np.uint8, mode="r")
+           if os.path.getsize(in_path) else np.zeros(0, np.uint8))
+    with open(out_path, "wb") as f:
+        compress_to_file(buf, f, cfg, n_writers, device, stats_out)

@@ -4,9 +4,11 @@ Reads the footer, walks blocks in file order, stitches split sub-blocks,
 decodes each sub-block through the port's subblock stages (device dispatch
 on the calling thread, fetch + FASTQ reassembly on a thread pool, chunks
 completed in order) and places each chunk at its writer's output offset.
-The driver functions are copied from phyngsc_tpu/pipeline/decompress.py
-(which imports jax); the multi-process writer filter and sharded decode are
-later slices.
+decompress_file memmaps the container and pwrites each chunk at its
+absolute offset; writer_filter decodes only the chosen writers' blocks (the
+multi-process driver's share). The driver functions are copied from
+phyngsc_tpu/pipeline/decompress.py (which imports jax); sharded decode is a
+later slice.
 """
 
 from __future__ import annotations
@@ -44,9 +46,12 @@ def _read_footer_any(data) -> footermod.Footer:
 
 
 def _decode_stream(data, foot: footermod.Footer, cfg: Optional[CodecConfig],
-                   write_at, device) -> None:
+                   write_at, device, writer_filter=None) -> None:
     """Calls write_at(offset, chunk) for every decoded sub-block, holding at
-    most pipeline_depth sub-blocks in flight."""
+    most pipeline_depth sub-blocks in flight. writer_filter: optional set of
+    writer ids whose blocks alone are decoded (a writer's sub-blocks never
+    split across another writer's blocks, so the filtered stream stitches
+    the same way)."""
     device = resolve(device)
     cfg = cfg or CodecConfig()
     if cfg.data_shards > 1:
@@ -70,7 +75,8 @@ def _decode_stream(data, foot: footermod.Footer, cfg: Optional[CodecConfig],
     def blocks():
         off = 0
         for size, wid in zip(sizes, foot.cbo):
-            yield wid, bytes(data[off : off + size])  # one block at a time
+            if writer_filter is None or wid in writer_filter:
+                yield wid, bytes(data[off : off + size])  # one at a time
             off += size
 
     written = 0
@@ -99,10 +105,16 @@ def _decode_stream(data, foot: footermod.Footer, cfg: Optional[CodecConfig],
         while pending:
             _drain_one()
 
-    if written != foot.fastq_size:
+    if writer_filter is None:
+        expect = foot.fastq_size
+    else:
+        expect = sum(
+            (starts[w + 1] if w + 1 < len(starts) else foot.fastq_size)
+            - starts[w] for w in writer_filter)
+    if written != expect:
         raise ValueError(
-            f"decompressed size {written} != footer fastq_size "
-            f"{foot.fastq_size}")
+            f"decompressed size {written} != expected {expect} "
+            f"(footer fastq_size {foot.fastq_size})")
 
 
 def decompress_bytes(data, cfg: Optional[CodecConfig] = None,
@@ -128,3 +140,21 @@ def decompress_bytes(data, cfg: Optional[CodecConfig] = None,
     for off, chunk in chunks:
         out[off : off + len(chunk)] = chunk
     return bytes(out)
+
+
+def decompress_file(in_path: str, out_path: str,
+                    cfg: Optional[CodecConfig] = None, device="cuda") -> None:
+    """Bounded-memory file-to-file decompression: the container is
+    memmapped and each decoded chunk is pwritten at its absolute offset, so
+    host memory is flat in the file size. The file is sized only after the
+    decoded total matched the footer (a corrupt footer cannot make a huge
+    sparse file)."""
+    data = np.memmap(in_path, dtype=np.uint8, mode="r")
+    foot = _read_footer_any(data)
+    fd = os.open(out_path, os.O_WRONLY | os.O_CREAT | os.O_TRUNC, 0o644)
+    try:
+        _decode_stream(data, foot, cfg,
+                       lambda off, chunk: os.pwrite(fd, chunk, off), device)
+        os.ftruncate(fd, foot.fastq_size)
+    finally:
+        os.close(fd)

@@ -11,8 +11,9 @@ and both histograms (K1) on the device; stage_b builds the tables on the
 host and packs both streams on the device (code lookups on K4); stage_c
 fetches the words and assembles the sections. Decode: _decode_parse is host
 code; decode_stage_a uploads the linear word streams and host-built LUTs,
-decodes quality (K2 for uniform lengths, K3 with per-position trees for
-variable lengths) then DNA (K3), restores the ambiguity and undoes the delta
+lays each stream out as its (Wmax, Sp) word plane (K5), decodes quality (K2
+for uniform lengths, K3 with per-position trees for variable lengths) then
+DNA (K3) from the planes, restores the ambiguity and undoes the delta
 translation on the device; decode_stage_b fetches the restored planes and
 reassembles FASTQ text. Every read length the container holds (up to 65535)
 is taken.
@@ -28,7 +29,7 @@ from phyngsc_tpu.utils.bitio import BitReader, BitWriter
 from phyngsc_tpu.utils.fastq import FastqFormatError, RecordIndex
 from phyngsc_tpu.utils.shapes import bucket_length, bucket_records
 from phyngsc_tpu_torch.models import dna, quality, title
-from phyngsc_tpu_torch.ops import lookup
+from phyngsc_tpu_torch.ops import bitpack, lookup
 from phyngsc_tpu_torch.ops.bitpack_host import bytes_to_words, words_to_bytes
 
 FLAG_VARIABLE_LENGTH = 1
@@ -403,34 +404,38 @@ class _DStage:
 
 
 def _decode_device(p: _DParsed, cfg: CodecConfig, device) -> torch.Tensor:
-    """Quality walk (K2, or K3 for variable lengths) -> keep mask -> DNA walk
-    (K3) -> ambiguity restore -> delta untranslate. Returns the (2, Rp, L)
-    uint8 seq/qual planes on the device."""
+    """Both word planes (K5) -> quality walk (K2, or K3 for variable lengths)
+    -> keep mask -> DNA walk (K3) -> ambiguity restore -> delta untranslate,
+    as phyngsc_tpu's _decode_walk_fused under PHYNGSC_DENSIFY=dma. Returns
+    the (2, Rp, L) uint8 seq/qual planes on the device."""
     if not p.R:
         return torch.zeros((2, 0, p.L), dtype=torch.uint8, device=device)
+    # both tables are checked before anything is uploaded
+    q_wmax, sp = bitpack.plane_geometry(p.q_sub, p.G, p.L, cfg.max_code_len)
+    d_wmax, _ = bitpack.plane_geometry(p.d_sub, p.G, p.L, cfg.max_code_len)
     V = 1 << cfg.max_code_len
     lens = _record_lens(p.lens_np, p.Rp, device)
     q_luts = (p.q_tables.luts(cfg.max_code_len) if p.q_tables.n_trees
               else np.zeros((1, V), np.int32))
-    q_words = _upload_words(p.q_words, device)
-    q_sub = _to_device(p.q_sub, device)
+    q_plane = bitpack.dense_words(_upload_words(p.q_words, device),
+                                  _to_device(p.q_sub, device), q_wmax, sp)
     q_luts = _to_device(q_luts, device)
     if p.variable:
         qual_t = quality.decode_walk_masked(
-            q_words, q_sub, lens, q_luts, p.L, p.G, cfg.max_code_len,
+            q_plane, lens, q_luts, p.L, p.G, cfg.max_code_len,
             legacy=cfg.legacy_tail_trees)
     else:
         qual_t = quality.decode_walk(
-            q_words, q_sub, lens, q_luts, p.L, p.Lt, p.G, cfg.max_code_len,
+            q_plane, lens, q_luts, p.L, p.Lt, p.G, cfg.max_code_len,
             legacy=cfg.legacy_tail_trees)
     keep = (qual_t < 128) & quality.valid_mask(lens, p.L)
-    d_words = _upload_words(p.d_words, device)
-    d_sub = _to_device(p.d_sub, device)
+    d_plane = bitpack.dense_words(_upload_words(p.d_words, device),
+                                  _to_device(p.d_sub, device), d_wmax, sp)
     if p.d_plan.mode == dna.MODE_PLAIN:
-        dna_syms = dna.decode_plain_walk(d_words, d_sub, keep, p.G)
+        dna_syms = dna.decode_plain_walk(d_plane, keep, p.G)
     else:
         lut = _to_device(p.d_plan.luts(cfg.max_code_len)[0], device)
-        dna_syms = dna.decode_huffman_walk(d_words, d_sub, keep, lut, p.G,
+        dna_syms = dna.decode_huffman_walk(d_plane, keep, lut, p.G,
                                            cfg.max_code_len)
     seq, qual = dna.restore_ambiguity(dna_syms, qual_t, lens)
     if p.is_delta:

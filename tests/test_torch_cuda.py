@@ -1,8 +1,10 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, on the
 card, at edge shapes the smoke test does not reach: several position tiles
-and out-of-alphabet symbols (K1, K4), merged and singleton trees, dead lanes
-and starts past the end of the words (K2, K3), per-position trees over
-variable lengths (K3), and round trips of every input class. Skipped
+and out-of-alphabet symbols (K1, K4), pad lanes, empty lanes, streams with
+no words and tables pointing past the words (K5), merged and singleton
+trees, dead lanes and cursors running past the plane's rows (K2, K3, on the
+plane K5 builds), per-position trees over variable lengths (K3), and round
+trips of every input class. Skipped
 without a CUDA device; on the card (which has no jax) run
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -16,7 +18,7 @@ from phyngsc_tpu.config import CodecConfig
 from phyngsc_tpu.utils.fastq import synthesize_fastq
 from phyngsc_tpu_torch import kernels
 from phyngsc_tpu_torch.models import dna, quality
-from phyngsc_tpu_torch.ops import bitpack, histogram, lookup
+from phyngsc_tpu_torch.ops import bitpack, bitpack_host, histogram, lookup
 from phyngsc_tpu_torch.pipeline.compress import compress_bytes
 from phyngsc_tpu_torch.pipeline.decompress import decompress_bytes
 
@@ -69,14 +71,46 @@ def _quality_case(R, Rp, Lt, n_trees, seed):
     return qual, lens, L, tables, words, sub
 
 
+def _plane(words, sub, dev):
+    """The walk plane on dev: K5 on the card, its plain version on the CPU."""
+    Wmax, Sp = bitpack_host.dense_geometry(sub.numpy())
+    return bitpack.dense_words(words.to(dev), sub.to(dev), Wmax, Sp)
+
+
+@pytest.mark.parametrize("S,max_words,n_short", [
+    (1, 40, 0), (37, 300, 0), (130, 40, 0), (2048, 90, 0),
+    (37, 0, 0),        # a stream with no words
+    (130, 40, 57),     # the table points past the last word
+    (3, 70000, 0),     # lanes of up to 70,000 words, past 2^16
+])
+def test_densify_kernel(cuda, S, max_words, n_short):
+    """K5 against dense_words_plain in every cell: pad lanes, empty lanes
+    (a third of them), reads past the words give 0."""
+    rng = np.random.default_rng(S + max_words + n_short)
+    sub = rng.integers(0, max_words + 1, size=S).astype(np.int32)
+    sub[rng.random(S) < 0.3] = 0
+    n = max(int(sub.sum()) - n_short, 0)
+    words = torch.from_numpy(rng.integers(0, 1 << 32, size=n, dtype=np.uint64
+                                          ).astype(np.uint32).view(np.int32))
+    Wmax, Sp = bitpack_host.dense_geometry(sub)
+    subt = torch.from_numpy(sub)
+    before = kernels.LAUNCHES["k5_densify"]
+    got = bitpack.dense_words(words.to(cuda), subt.to(cuda), Wmax, Sp).cpu()
+    assert kernels.LAUNCHES["k5_densify"] == before + 1
+    ref = bitpack.dense_words_plain(words, subt, Wmax, Sp)
+    assert got.shape == (Wmax, Sp)
+    assert torch.equal(got, ref)
+
+
 @pytest.mark.parametrize("R,Lt,n_trees", [(300, 36, 36), (700, 37, 9),
                                           (1024, 76, 76)])
 def test_uniform_walk_kernel(cuda, R, Lt, n_trees):
     qual, lens, L, tables, words, sub = _quality_case(R, 1024, Lt, n_trees, R)
     luts = torch.from_numpy(tables.luts(BITS))
-    got = quality.decode_walk(words.to(cuda), sub.to(cuda), lens.to(cuda),
+    got = quality.decode_walk(_plane(words, sub, cuda), lens.to(cuda),
                               luts.to(cuda), L, Lt, G, BITS).cpu()
-    ref = quality.decode_walk(words, sub, lens, luts, L, Lt, G, BITS)
+    ref = quality.decode_walk(_plane(words, sub, "cpu"), lens, luts, L, Lt, G,
+                              BITS)
     assert torch.equal(got, ref)
     assert np.array_equal(got.numpy(), qual)
 
@@ -98,28 +132,30 @@ def test_masked_walk_kernel(cuda, alphabet):
         seq.size + 64)
     words = torch.from_numpy(
         w[: int(total)].numpy().astype(np.uint32).view(np.int32))
+    plane, plane_c = _plane(words, sub, cuda), _plane(words, sub, "cpu")
     if plan.mode == dna.MODE_PLAIN:
-        got = dna.decode_plain_walk(words.to(cuda), sub.to(cuda), k.to(cuda),
-                                    G).cpu()
-        ref = dna.decode_plain_walk(words, sub, k, G)
+        got = dna.decode_plain_walk(plane, k.to(cuda), G).cpu()
+        ref = dna.decode_plain_walk(plane_c, k, G)
     else:
         lut = torch.from_numpy(plan.luts(BITS)[0])
-        got = dna.decode_huffman_walk(words.to(cuda), sub.to(cuda),
-                                      k.to(cuda), lut.to(cuda), G, BITS).cpu()
-        ref = dna.decode_huffman_walk(words, sub, k, lut, G, BITS)
+        got = dna.decode_huffman_walk(plane, k.to(cuda), lut.to(cuda), G,
+                                      BITS).cpu()
+        ref = dna.decode_huffman_walk(plane_c, k, lut, G, BITS)
     assert torch.equal(got, ref)
     assert np.array_equal(got.numpy(), np.where(keep, seq, 0))
 
 
 def test_walks_past_the_end(cuda):
-    words = torch.tensor([-1, 0x12345678, 7], dtype=torch.int32)
-    sub = torch.tensor([1000, 5, 2])  # lanes 1, 2 start past the end
+    """Cursors that run past the plane's two rows read zeros, on the card as
+    in the plain walks; lane 3 is a pad lane of the plane."""
+    plane = torch.tensor([[-1, 0x12345678, 7, 0], [5, -2, 0, 0]],
+                         dtype=torch.int32)
     luts = (torch.arange(1 << 8, dtype=torch.int32) | (3 << 9))[None, :]
     tid = torch.zeros(4, dtype=torch.int32)
-    totals = torch.tensor([8, 8, 8], dtype=torch.int32)
-    got = bitpack.walk_uniform(words.to(cuda), sub.to(cuda), totals.to(cuda),
-                               luts.to(cuda), tid.to(cuda), 8, 2, 4, 4).cpu()
-    ref = bitpack.walk_uniform_plain(words, sub, totals, luts, tid, 8, 2, 4, 4)
+    totals = torch.tensor([32, 30, 8], dtype=torch.int32)  # 96 bits > 64
+    got = bitpack.walk_uniform(plane.to(cuda), totals.to(cuda), luts.to(cuda),
+                               tid.to(cuda), 8, 8, 4, 4).cpu()
+    ref = bitpack.walk_uniform_plain(plane, totals, luts, tid, 8, 8, 4, 4)
     assert torch.equal(got, ref)
     keep = torch.rand((3, 40), generator=torch.Generator().manual_seed(1)) < 0.7
     trees = torch.tensor([0, 5, -2, 1], dtype=torch.int32)  # clamped ids
@@ -127,11 +163,9 @@ def test_walks_past_the_end(cuda):
                               (False, luts.repeat(2, 1), trees)):
         bits = 12 if plain2 else 8
         got = bitpack.walk_masked(
-            words.to(cuda), sub.to(cuda), keep.to(cuda),
-            None if plain2 else lut.to(cuda),
+            plane.to(cuda), keep.to(cuda), None if plain2 else lut.to(cuda),
             None if plain2 else tree.to(cuda), bits, plain2).cpu()
-        ref = bitpack.walk_masked_plain(words, sub, keep, lut, tree, bits,
-                                        plain2)
+        ref = bitpack.walk_masked_plain(plane, keep, lut, tree, bits, plain2)
         assert torch.equal(got, ref)
 
 
@@ -184,12 +218,13 @@ def test_masked_walk_kernel_per_position_trees(cuda, Lmax, n_trees, legacy):
     words = torch.from_numpy(
         w[: int(total)].numpy().astype(np.uint32).view(np.int32))
     luts = torch.from_numpy(tables.luts(BITS))
+    plane = _plane(words, sub, cuda)
     before = kernels.LAUNCHES["k3_walk_masked/quality"]
-    got = quality.decode_walk_masked(words.to(cuda), sub.to(cuda),
-                                     ln.to(cuda), luts.to(cuda), L, G, BITS,
-                                     legacy).cpu()
+    got = quality.decode_walk_masked(plane, ln.to(cuda), luts.to(cuda), L, G,
+                                     BITS, legacy).cpu()
     assert kernels.LAUNCHES["k3_walk_masked/quality"] == before + 1
-    ref = quality.decode_walk_masked(words, sub, ln, luts, L, G, BITS, legacy)
+    ref = quality.decode_walk_masked(_plane(words, sub, "cpu"), ln, luts, L,
+                                     G, BITS, legacy)
     assert torch.equal(got, ref)
     assert np.array_equal(got.numpy(), qual)
 
@@ -213,6 +248,22 @@ def test_input_classes_on_card_match_cpu(cuda, case):
     blob = compress_bytes(data, cfg, 2, device=cuda)
     assert blob == compress_bytes(data, cfg, 2, device="cpu")
     assert decompress_bytes(blob, device=cuda) == data
+
+
+def test_lanes_past_2_16_words_on_card(cuda):
+    """A short first read keeps G = 64 under auto_substream, so a lane of
+    63 reads of 5,400 bp holds more than 2^16 quality words."""
+    rng = np.random.default_rng(71)
+    data = b"".join(
+        b"@r%d\n%s\n+\n%s\n" % (
+            i, np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, n)].tobytes(),
+            rng.integers(33, 127, n).astype(np.uint8).tobytes())
+        for i, n in enumerate([100] + [5400] * 63))
+    blob = compress_bytes(data, CodecConfig(), 1, device=cuda)
+    assert blob == compress_bytes(data, CodecConfig(), 1, device="cpu")
+    before = kernels.LAUNCHES["k5_densify"]
+    assert decompress_bytes(blob, device=cuda) == data
+    assert kernels.LAUNCHES["k5_densify"] == before + 2
 
 
 def test_round_trip_on_card_matches_cpu(cuda):

@@ -22,7 +22,14 @@ def test_port_imports_without_jax():
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, "
         "'phyngsc_tpu_torch.')]\n"
         "for n in names:\n"
-        "    importlib.import_module(n)\n"
+        "    if not n.endswith('__main__'):\n"
+        "        importlib.import_module(n)\n"
+        "import runpy\n"
+        "sys.argv = ['phyngsc_tpu_torch', '--help']\n"
+        "try:\n"
+        "    runpy.run_module('phyngsc_tpu_torch', run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e.code\n"
         "assert sys.modules['jax'] is None\n"
         "print(len(names))\n"
     )
@@ -30,7 +37,8 @@ def test_port_imports_without_jax():
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 12  # every module of the package
+    assert "compress" in res.stdout  # python -m phyngsc_tpu_torch --help
+    assert int(res.stdout.strip().splitlines()[-1]) >= 14  # every module
 
 
 def test_cuda_device_raises_without_card():
@@ -61,14 +69,17 @@ def test_wrappers_raise_off_the_cpu():
     words = torch.zeros(8, dtype=torch.int32, device="meta")
     sub = torch.zeros(2, dtype=torch.int64, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
-        bitpack.walk_uniform(words, sub, sub.int(),
+        bitpack.dense_words(words, sub, 256, 128)
+    plane = torch.zeros((256, 128), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        bitpack.walk_uniform(plane, sub.int(),
                              torch.zeros((1, 4096), dtype=torch.int32,
                                          device="meta"),
                              torch.zeros(4, dtype=torch.int32, device="meta"),
                              12, 2, 4, 4)
     with pytest.raises(ValueError, match="CUDA"):
-        bitpack.walk_masked(words, sub, torch.zeros((2, 8), dtype=torch.bool,
-                                                    device="meta"),
+        bitpack.walk_masked(plane, torch.zeros((2, 8), dtype=torch.bool,
+                                               device="meta"),
                             None, None, 12, True)
     with pytest.raises(ValueError, match="CUDA"):
         lookup.fused_lookup(sym, torch.zeros((8, 64), dtype=torch.int32,
@@ -82,4 +93,5 @@ def test_kernel_library_is_named_by_its_sources():
     assert path.startswith(kernels.BUILD_DIR)
     assert os.path.basename(path).startswith("libphyngsc_kernels_")
     assert np.all([os.path.exists(os.path.join(kernels.SRC_DIR, f))
-                   for f in ("histogram.cu", "lookup.cu", "walk.cu")])
+                   for f in ("densify.cu", "histogram.cu", "lookup.cu",
+                             "walk.cu")])

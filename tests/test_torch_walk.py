@@ -1,8 +1,9 @@
 """K2 / K3: the port's walks (plain versions of csrc/walk.cu) against
 phyngsc_tpu's Pallas walks in interpret mode, on streams that phyngsc_tpu's
-encoder wrote. phyngsc_tpu is fed the dense word plane and LUT runs that its
-fused decode builds (subblock.py:1243-1251); the port reads the linear
-stream and host-built LUTs. Exact equality: symbols are bytes."""
+encoder wrote. Both are fed the same (Wmax, Sp) word plane, the one
+phyngsc_tpu's fused decode walks (dense_words_np, subblock.py:1265-1268);
+phyngsc_tpu takes the LUT runs its decode builds (subblock.py:1243-1251),
+the port host-built LUTs. Exact equality: symbols are bytes."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -40,8 +41,9 @@ def _t(a):
     return torch.from_numpy(np.array(a))
 
 
-def _words(words):
-    return _t(np.asarray(words, np.uint32).view(np.int32))
+def _pt(dense):
+    """The same plane as the port's int32 tensor of uint32 bits."""
+    return _t(np.asarray(dense, np.uint32).view(np.int32))
 
 
 def _quality_stream(qual, lens, tables):
@@ -89,13 +91,13 @@ def test_quality_walk_matches_pallas(R, Lt, n_trees, singleton_pos, legacy):
             jt.lens[tid], jt.codes[tid], jt.singletons[tid]))
     else:
         words, sub = _quality_stream(qual, lens, jt)
+    dense = _dense(words, sub)
     ref = np.asarray(jquality.decode_device_walk(
-        _dense(words, sub), jnp.asarray(lens), _runs(jt.lens, jt.singletons),
+        dense, jnp.asarray(lens), _runs(jt.lens, jt.singletons),
         L, Lt, G, BITS, legacy=legacy, interpret=True))
     pt = convert.quality_tables(jt)
-    got = quality.decode_walk(_words(words), _t(sub), _t(lens),
-                              _t(pt.luts(BITS)), L, Lt, G, BITS,
-                              legacy=legacy)
+    got = quality.decode_walk(_pt(dense), _t(lens), _t(pt.luts(BITS)), L, Lt,
+                              G, BITS, legacy=legacy)
     assert got.dtype == torch.uint8 and got.shape == (Rp, L)
     np.testing.assert_array_equal(got.numpy(), ref)
     np.testing.assert_array_equal(got.numpy(), qual)  # what was encoded
@@ -126,9 +128,10 @@ def test_dna_plain_walk_matches_pallas(R, L):
                                              jnp.asarray(keep))), CFG)
     assert plan.mode == jdna.MODE_PLAIN
     words, sub = _dna_stream(seq, keep, plan)
+    dense = _dense(words, sub)
     ref = np.asarray(jdna.decode_plain_walk(
-        _dense(words, sub), jnp.asarray(keep), L, G, interpret=True))
-    got = dna.decode_plain_walk(_words(words), _t(sub), _t(keep), G)
+        dense, jnp.asarray(keep), L, G, interpret=True))
+    got = dna.decode_plain_walk(_pt(dense), _t(keep), G)
     np.testing.assert_array_equal(got.numpy(), ref)
     np.testing.assert_array_equal(got.numpy(), np.where(keep, seq, 0))
 
@@ -143,13 +146,13 @@ def test_dna_huffman_walk_matches_pallas(alphabet):
     if alphabet == b"GGGG":
         assert plan.singleton == ord("G")  # zero-bit tree: no cursor moves
     words, sub = _dna_stream(seq, keep, plan)
+    dense = _dense(words, sub)
     ref = np.asarray(jdna.decode_huffman_walk(
-        _dense(words, sub), jnp.asarray(keep),
+        dense, jnp.asarray(keep),
         _runs(plan.lens_tab[None, :], np.array([plan.singleton], np.int32)),
         L, G, BITS, interpret=True))
     lut = convert.dna_plan(plan).luts(BITS)[0]
-    got = dna.decode_huffman_walk(_words(words), _t(sub), _t(keep), _t(lut),
-                                  G, BITS)
+    got = dna.decode_huffman_walk(_pt(dense), _t(keep), _t(lut), G, BITS)
     np.testing.assert_array_equal(got.numpy(), ref)
     np.testing.assert_array_equal(got.numpy(), np.where(keep, seq, 0))
 
@@ -217,7 +220,7 @@ def test_multi_tree_masked_walk_matches_pallas(R, Lmax, n_trees, legacy, G_):
         n_steps=T, lut_bits=BITS, interpret=True))[:S]
     ptid = quality.tree_of_position(torch.arange(L), jt.n_trees, L, legacy)
     got = bitpack.walk_masked_plain(
-        _words(words), _t(sub), _t(valid.reshape(S, T)),
+        _pt(dense), _t(valid.reshape(S, T)),
         _t(convert.quality_tables(jt).luts(BITS)), ptid, BITS, False)
     assert got.shape == (S, T)
     np.testing.assert_array_equal(got.numpy(), ref)
@@ -236,31 +239,33 @@ def test_variable_quality_decode_matches(R, Lmax, n_trees, legacy, G_):
     qual, lens, L, jt = _variable_case(R, Rp, Lmax, n_trees, R + Lmax + 1,
                                        legacy)
     words, sub = _variable_stream(qual, lens, L, jt, legacy, G_)
+    dense = _dense(words, sub)
     ref = np.asarray(jquality.decode_device_walk_masked(
-        _dense(words, sub), jnp.asarray(lens), _runs(jt.lens, jt.singletons),
+        dense, jnp.asarray(lens), _runs(jt.lens, jt.singletons),
         L, G_, BITS, legacy=legacy, interpret=True))
     got = quality.decode_walk_masked(
-        _words(words), _t(sub), _t(lens),
-        _t(convert.quality_tables(jt).luts(BITS)), L, G_, BITS,
-        legacy=legacy)
+        _pt(dense), _t(lens), _t(convert.quality_tables(jt).luts(BITS)), L,
+        G_, BITS, legacy=legacy)
     assert got.dtype == torch.uint8 and got.shape == (Rp, L)
     np.testing.assert_array_equal(got.numpy(), ref)
     np.testing.assert_array_equal(got.numpy(), qual)
 
 
 def test_walk_reads_past_the_end_as_zero():
-    """A corrupt substream table pointing past the words decodes garbage
-    but stays in bounds: reads past the end see zero words, exactly as the
-    kernel's bounds-checked loads do."""
-    words = _words(np.array([0xFFFFFFFF, 0x12345678], np.uint32))
-    sub = torch.tensor([1000, 5])  # lane 1 starts far past the end
+    """A cursor that runs past the plane's rows (a corrupt stream) decodes
+    garbage but stays in bounds: reads past row Wmax see zero words, exactly
+    as the kernel's bounds-checked loads do."""
+    plane = _t(np.array([[0xFFFFFFFF, 0], [0x12345678, 0]], np.uint32
+                        ).view(np.int32))
     luts = torch.arange(1 << 8, dtype=torch.int32)[None, :] | (3 << 9)
-    got = bitpack.walk_uniform_plain(words, sub, torch.tensor([8, 8]), luts,
-                                     torch.zeros(4, dtype=torch.int32), 8, 2,
+    got = bitpack.walk_uniform_plain(plane, torch.tensor([32, 8]), luts,
+                                     torch.zeros(4, dtype=torch.int32), 8, 8,
                                      4, 4)
-    assert got.shape == (4, 4)
-    assert int(got[2:].max()) == 0
-    keep = torch.ones((2, 8), dtype=torch.bool)
-    out = bitpack.walk_masked_plain(words, sub, keep, None, None, 12, True)
-    assert int(out[1].max()) == 0
+    assert got.shape == (16, 4)
+    # lane 0: 96 bits walked, the last 32 of them past the plane's 64
+    assert int(got[:8].reshape(-1)[22:].max()) == 0
+    assert int(got[8:].max()) == 0  # lane 1 holds zero words
+    keep = torch.ones((2, 40), dtype=torch.bool)
+    out = bitpack.walk_masked_plain(plane, keep, None, None, 12, True)
     assert out[0].tolist()[:4] == [3, 3, 3, 3]
+    assert int(out[0, 32:].max()) == 0 and int(out[1].max()) == 0
