@@ -10,9 +10,17 @@ Phases (any failure exits non-zero):
      in its plain2, Huffman and per-position-tree quality variants, K4 code
      lookup, K5 densify) against its plain PyTorch version on the card, on
      the inputs the pipeline gives it for one default 8 MiB sub-block (36 bp,
-     100 bp variable-length and 1000 bp reads, and K5 on lanes past 2^16
-     words; the walks on the word plane K5 builds); results must be exactly
-     equal; times are CUDA-event medians;
+     100 bp variable-length and 1000 bp reads, and K5 and K3 on lanes past
+     2^16 words, K3 there against the sub-block's own quality symbols, since
+     the plain walk would take minutes; the walks on the word plane K5
+     builds, with the two-level shared-memory tables the decode builds);
+     results must be exactly equal; times are CUDA-event medians. Beside
+     each case: library_ms, one PyTorch call computing the same function
+     (torch.bincount for K1, advanced indexing for K4, torch.gather for K5,
+     none for the walks), checked equal too, and bound_ms, the least time
+     the card could take (bytes read once and written once at 3.35 TB/s, or
+     the operations at 67 T/s, whichever is larger), with the walks' chain
+     floor (their longest lane's steps at one shared-memory load each);
   3. the main path: compress_bytes -> decompress_bytes with device="cuda" on
      --mb MB of synthetic ERR005195 36 bp reads, an SRR-style 76 bp corpus
      whose DNA stream is Huffman-coded, variable-length 100 bp reads,
@@ -30,7 +38,8 @@ Phases (any failure exits non-zero):
   6. each phase-2 kernel case's own device time from a torch.profiler trace
      (last, so that the profiler cannot touch the timed round trips).
 The last line is {"ok": true, "device": {...}}; the line before it lists the
-kernels with their launch counts, errors and times.
+kernels with their launch counts, errors, times and bounds. The script
+imports neither jax nor phyngsc_tpu.
 """
 
 from __future__ import annotations
@@ -45,7 +54,8 @@ import subprocess
 import sys
 import time
 
-sys.modules["jax"] = None  # the port must never import jax
+sys.modules["jax"] = None  # the port must never import jax ...
+sys.modules["phyngsc_tpu"] = None  # ... nor the JAX package
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -89,6 +99,13 @@ KERNEL_FN = {"k1_histogram": "hist_kernel",
              "k2_walk_uniform": "walk_uniform_kernel",
              "k3_walk_masked": "walk_masked_kernel",
              "k4_lookup": "lookup_kernel", "k5_densify": "densify_kernel"}
+#: the H100's memory rate, and the rate taken for the kernels' scalar
+#: integer operations (its float32 peak outside the tensor cores)
+HBM_BYTES_PER_S = 3.35e12
+SCALAR_OPS_PER_S = 67e12
+#: one step of a walk's dependent chain: one shared-memory load, about 30
+#: cycles, at the H100's 1,980 MHz boost clock
+STEP_S = 30 / 1.98e9
 #: the kernels (and K3 variants) that the ERR005195 36 bp path launches
 ERR_PATH = ("k1_histogram", "k2_walk_uniform", "k3_walk_masked/plain2",
             "k4_lookup", "k5_densify")
@@ -248,10 +265,21 @@ class FirstSubblock:
               f"{[tuple(t.shape) for _, t in self.lookups]}", flush=True)
 
 
+def bound(nbytes: int, ops: int = 0) -> dict:
+    """The least time the card could take for work that moves nbytes (each
+    input read once, each output written once) and does ops operations."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / SCALAR_OPS_PER_S
+    return {"bytes": int(nbytes), "ops": int(ops),
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
 def compare(kernel: str, name: str, kernel_fn, plain_fn, reps: int,
-            plain_reps: int):
+            plain_reps: int, work: dict, library_fn=None, extra=None):
     """kernel_fn (a launch of `kernel`) against plain_fn on the card: exact
-    equality, then the CUDA-event median of one call of each. The kernel's
+    equality, then the CUDA-event median of one call of each, and of
+    library_fn (one PyTorch call of the same function, also held equal)
+    where there is one. work: bound() of the case's inputs. The kernel's
     own device time comes later (phase_device_times), from `_probe`."""
     got = kernel_fn()
     ref = plain_fn()
@@ -261,9 +289,16 @@ def compare(kernel: str, name: str, kernel_fn, plain_fn, reps: int,
     err = int((got.long() - ref.long()).abs().max()) if got.numel() else 0
     require(err == 0, f"{name}: kernel differs from its plain version "
             f"(max abs err {err})")
+    library_ms = None
+    if library_fn is not None:
+        lib = library_fn()
+        require(torch.equal(lib.long(), ref.long()),
+                f"{name}: the library call computes another function")
+        library_ms = cuda_ms(library_fn, reps)
     case = {"case": name, "shape": list(got.shape), "max_abs_err": err,
             "ms": cuda_ms(kernel_fn, reps),
-            "plain_ms": cuda_ms(plain_fn, plain_reps)}
+            "plain_ms": cuda_ms(plain_fn, plain_reps) if plain_reps else None,
+            "library_ms": library_ms, **work, **(extra or {})}
     print(f"kernel check: {json.dumps(case)}", flush=True)
     case["_probe"] = (kernel_fn, reps, KERNEL_FN[kernel])
     return case
@@ -278,42 +313,69 @@ def phase_device_times(cases: dict) -> None:
                   flush=True)
 
 
+def walk_work(words: int, lanes: int, tables, slot_bytes: int,
+              steps: torch.Tensor) -> tuple:
+    """(bound() of a walk, its chain floor): the lanes' words, their totals,
+    the tables (packed and tree ids), the slot bytes read and written; the
+    longest lane's steps at one shared-memory load each."""
+    nbytes = 4 * words + 4 * lanes + slot_bytes
+    if tables is not None:
+        nbytes += 2 * tables.packed.numel()
+    longest = int(steps.max()) if steps.numel() else 0
+    return bound(nbytes), {"chain_floor_ms": longest * STEP_S * 1e3,
+                           "longest_lane_steps": longest}
+
+
 def phase_kernels(dev) -> dict:
     bits = CodecConfig().max_code_len
     cases = {k: [] for k in KERNELS}
 
     def k1(name, sym, mask, A):
         mask = mask.to(torch.uint8).contiguous()
+        R, L = sym.shape
+        ok = mask.bool() & (sym.long() < A)
+        flat = torch.where(ok, torch.arange(L, device=dev) * A + sym.long(),
+                           L * A).reshape(-1)
         cases["k1_histogram"].append(compare(
             "k1_histogram", name, lambda: kernels.histogram(sym, mask, A),
-            lambda: histogram.position_histogram_plain(sym, mask, A), 20, 5))
+            lambda: histogram.position_histogram_plain(sym, mask, A), 20, 5,
+            bound(2 * R * L + 4 * L * A, R * L),
+            lambda: torch.bincount(flat, minlength=L * A + 1)[:L * A].view(
+                L, A)))
 
     def k2(name, f):
         p, G = f.p, f.G
         S = p.q_sub.shape[0]
         plane = f.plane("q")
         totals = f.lens.reshape(S, G).sum(dim=1, dtype=torch.int32)
-        luts = torch.from_numpy(p.q_tables.luts(bits)).to(dev)
+        luts = bitpack.walk_luts(p.q_tables.luts(bits), bits, dev, p.Lt)
         tid = quality.tree_of_position(torch.arange(p.Lt, device=dev),
                                        p.q_tables.n_trees, p.L).to(torch.int32)
+        work, chain = walk_work(int(p.q_sub.sum()), S, luts,
+                                S * G * p.L + 4 * p.Lt, totals)
         cases["k2_walk_uniform"].append(compare(
             "k2_walk_uniform", name,
-            lambda: kernels.walk_uniform(plane, totals, luts, tid, bits, G,
-                                         p.Lt, p.L),
-            lambda: bitpack.walk_uniform_plain(plane, totals, luts, tid, bits,
-                                               G, p.Lt, p.L),
-            20, 3))
+            lambda: kernels.walk_uniform(plane, totals, luts, tid, G, p.Lt,
+                                         p.L),
+            lambda: bitpack.walk_uniform_plain(plane, totals, luts.full, tid,
+                                               bits, G, p.Lt, p.L),
+            20, 3, work, extra={**chain, "k": luts.k,
+                                "n_trees": luts.n_trees}))
 
-    def k3(name, f, variant):
+    def k3(name, f, variant, against_input=False):
         """variant: plain2 / huffman (DNA, after the quality decode) or
-        quality (variable-length quality, per-position trees)."""
+        quality (variable-length quality, per-position trees); against_input:
+        hold the quality walk against the sub-block's own symbols (lanes too
+        long for the plain walk's Python loop)."""
         p, G = f.p, f.G
         S = p.q_sub.shape[0]
         q_plane = f.plane("q")
-        q_luts = torch.from_numpy(p.q_tables.luts(bits)).to(dev)
+        q_luts = p.q_tables.luts(bits)
         valid = quality.valid_mask(f.lens, p.L)
         if variant == "quality":
-            plane, keep, luts = q_plane, valid, q_luts
+            plane, keep, sub = q_plane, valid, p.q_sub
+            luts = bitpack.walk_luts(q_luts, bits, dev,
+                                     kernels.masked_ids(p.L))
             tid = quality.tree_of_position(torch.arange(p.L, device=dev),
                                            p.q_tables.n_trees, p.L).to(
                                                torch.int32)
@@ -325,37 +387,65 @@ def phase_kernels(dev) -> dict:
                 qual_t = quality.decode_walk(q_plane, f.lens, q_luts, p.L,
                                              p.Lt, G, bits)
             keep = (qual_t < 128) & valid
-            plane = f.plane("d")
+            plane, sub = f.plane("d"), p.d_sub
             luts = (None if variant == "plain2" else
-                    torch.from_numpy(p.d_plan.luts(bits)).to(dev))
+                    bitpack.walk_luts(p.d_plan.luts(bits), bits, dev))
             tid = (None if variant == "plain2" else
                    torch.zeros(1, dtype=torch.int32, device=dev))
         keep = keep.to(torch.uint8).reshape(S, -1).contiguous()
         tot = keep.sum(dim=1, dtype=torch.int32)
         plain2 = variant == "plain2"
+        steps = -(-tot // 16) if plain2 else tot
+        work, chain = walk_work(int(sub.sum()), S, luts, 2 * keep.numel(),
+                                steps)
+        extra = {**chain, "k": luts and luts.k,
+                 "n_trees": luts and luts.n_trees}
+        if against_input:
+            truth = torch.where(valid, f.a.qual_t, 0).reshape(S, -1)
+            plain_fn, plain_reps = (lambda: truth), 0
+            extra["reference"] = "the sub-block's quality symbols"
+        else:
+            plain_fn, plain_reps = (
+                lambda: bitpack.walk_masked_plain(
+                    plane, keep, None if plain2 else luts.full, tid, bits,
+                    plain2)), 3
         cases["k3_walk_masked"].append(compare(
             "k3_walk_masked", name,
-            lambda: kernels.walk_masked(plane, tot, keep, luts, tid, bits,
-                                        plain2),
-            lambda: bitpack.walk_masked_plain(plane, keep, luts, tid, bits,
-                                              plain2),
-            20, 3))
+            lambda: kernels.walk_masked(plane, tot, keep, luts, tid, plain2),
+            plain_fn, 20, plain_reps, work, extra=extra))
 
     def k5(name, f):
         for which in ("q", "d"):
             words, sub, Wmax, Sp = f.stream(which)
             start = bitpack.word_starts(sub)
             sub32 = sub.to(torch.int32)
+            S, n = sub.shape[0], words.shape[0]
+            w = torch.arange(Wmax, device=dev)[:, None]
+            src = start[None, :] + w
+            src = torch.where((w < sub[None, :]) & (src < n), src, n)
+            index = torch.full((Wmax, Sp), n, dtype=torch.int64, device=dev)
+            index[:, :S] = src
+            padded = torch.cat([words, words.new_zeros(1)])
             cases["k5_densify"].append(compare(
                 "k5_densify", f"{name} {which} plane ({Wmax}, {Sp})",
                 lambda: kernels.densify(words, start, sub32, Wmax, Sp),
                 lambda: bitpack.dense_words_plain(words, sub, Wmax, Sp),
-                50, 10))
+                50, 10, bound(4 * int(sub.sum()) + 12 * S + 4 * Wmax * Sp),
+                lambda: torch.gather(padded, 0, index.view(-1)).view(Wmax,
+                                                                     Sp)))
 
     def k4(name, sym, tab):
+        R, L = sym.shape
+        A = tab.shape[1]
+        padded = torch.zeros((L, 256), dtype=torch.int32, device=dev)
+        padded[:, :A] = tab
+        pos = torch.arange(L, device=dev)[None, :]
+        sym64 = sym.long()
         cases["k4_lookup"].append(compare(
             "k4_lookup", name, lambda: kernels.lookup(sym, tab),
-            lambda: lookup.fused_lookup_plain(sym, tab), 20, 5))
+            lambda: lookup.fused_lookup_plain(sym, tab), 20, 5,
+            bound(R * L + 4 * L * A + 4 * R * L),
+            lambda: padded[pos, sym64]))
 
     err = FirstSubblock(synthesize_fastq(70000, read_len=36, seed=1), dev)
     err.describe("ERR005195 36 bp")
@@ -408,6 +498,11 @@ def phase_kernels(dev) -> dict:
     require(lanes.G == 64 and lane > 1 << 16,
             f"long-lane sub-block: G = {lanes.G}, longest lane {lane} words")
     k5("k5 long lanes", lanes)
+    k3("k3 quality long lanes", lanes, "quality", against_input=True)
+    walks = cases["k2_walk_uniform"] + cases["k3_walk_masked"]
+    require(any(c["k"] is not None and c["k"] < bits for c in walks)
+            and any(c["k"] == bits for c in walks),
+            "the walk cases did not take both whole and two-level tables")
     return cases
 
 
@@ -574,6 +669,9 @@ def main() -> int:
     kernels.build()
     print(f"kernel build: {time.perf_counter() - t0:.2f} s "
           f"({kernels.library_path()})", flush=True)
+    for line in kernels.build_log().splitlines():  # ptxas -v of the walks
+        if "walk" in line or "Used" in line or "spill" in line:
+            print(f"ptxas: {line.strip()}", flush=True)
 
     cases = phase_kernels(dev)
     err = corpus_of(args.mb, lambda n: synthesize_fastq(n, read_len=36,
@@ -582,8 +680,8 @@ def main() -> int:
     phase_files(dev, err)
     phase_goldens(dev)
     phase_device_times(cases)
-    require("jax" not in sys.modules or sys.modules["jax"] is None,
-            "jax was imported")
+    require(all(sys.modules.get(m) is None for m in ("jax", "phyngsc_tpu")),
+            "jax or phyngsc_tpu was imported")
 
     rows = []
     for name, (source, replaces) in KERNELS.items():
@@ -592,6 +690,9 @@ def main() -> int:
                      "replaces": replaces, "launches": launches[name],
                      "max_abs_err": max(x["max_abs_err"] for x in c),
                      "ms": c[0]["ms"], "plain_ms": c[0]["plain_ms"],
+                     "bound_ms": c[0]["bound_ms"],
+                     "bound_by": c[0]["bound_by"],
+                     "library_ms": c[0]["library_ms"],
                      "device_ms": c[0]["device_ms"], "cases": c})
     print(card)  # name, power limit: exactly as nvidia-smi prints them
     print(json.dumps({"kernels": rows}))

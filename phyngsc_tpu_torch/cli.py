@@ -10,7 +10,7 @@ The subcommands and flags are phyngsc_tpu's, and the containers are the
 same bytes. --device picks the device of the codec's tensor work: "cuda"
 (the default) raises without a card, "cpu" runs the kernels' plain PyTorch
 versions. --profile DIR writes a torch.profiler trace. .ngsc import and
-export are phyngsc_tpu's own host code.
+export run the port's copies of phyngsc_tpu's container modules.
 """
 
 from __future__ import annotations
@@ -22,7 +22,7 @@ import sys
 import tempfile
 import time
 
-from phyngsc_tpu.config import CodecConfig
+from phyngsc_tpu_torch.config import CodecConfig
 from phyngsc_tpu_torch.device import resolve
 
 
@@ -166,7 +166,7 @@ def main(argv=None) -> int:
         return 0
 
     if args.cmd == "import-ngsc":
-        from phyngsc_tpu.container.ngsc_import import import_ngsc_file
+        from phyngsc_tpu_torch.container.ngsc_import import import_ngsc_file
 
         t0 = time.perf_counter()
         n = import_ngsc_file(args.input, args.output)
@@ -175,7 +175,7 @@ def main(argv=None) -> int:
         return 0
 
     if args.cmd == "export-ngsc":
-        from phyngsc_tpu.container.ngsc_export import export_ngsc_file
+        from phyngsc_tpu_torch.container.ngsc_export import export_ngsc_file
 
         t0 = time.perf_counter()
         n = export_ngsc_file(args.input, args.output)

@@ -1,9 +1,10 @@
-"""Make phyngsc_tpu's C++ host runtime (native/host_runtime.cpp) loadable.
+"""Make the repo's C++ host runtime (native/host_runtime.cpp) loadable.
 
 The port's host stages (record indexing and gathers, Huffman table builds,
-the title codec, FASTQ reassembly) go through phyngsc_tpu/utils/native.py,
-which builds the runtime with OpenMP at first use and falls back to numpy
-when that build fails. A toolchain without an OpenMP runtime (g++ without
+the title codec, FASTQ reassembly) go through utils/native.py, the port's
+copy of phyngsc_tpu's loader, which finds the same repo-root native/,
+builds the runtime with OpenMP at first use and falls back to numpy when
+that build fails. A toolchain without an OpenMP runtime (g++ without
 libgomp) fails it, so ensure() builds the same sources without -fopenmp:
 the pragmas compile away and each call runs on one thread, while the
 pipelines' thread pools still overlap sub-blocks. The library lands where
@@ -17,11 +18,9 @@ import os
 import subprocess
 import threading
 
-import phyngsc_tpu
-
+#: the repo-root native/ beside this package (utils/native.py's _NATIVE_DIR)
 NATIVE_DIR = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(phyngsc_tpu.__file__))),
-    "native")
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "native")
 LIB_PATH = os.path.join(NATIVE_DIR, "libphyngsc_host.so")
 SERIAL_CXXFLAGS = "-O3 -march=native -fPIC -std=c++17"
 

@@ -3,7 +3,9 @@ histogram, K2/K3 walks, K4 lookup, K5 densify.
 
 The sources compile at first use with nvcc into one shared library with a
 plain C interface under build/kernels/ (named by a hash of the sources, so a
-stale build is never loaded) and bind through ctypes. Each launch goes on
+stale build is never loaded) and bind through ctypes; what ptxas reports of
+each kernel (registers, shared memory, spills) is kept beside the library
+(build_log). Each launch goes on
 PyTorch's current stream, allocates nothing itself and is checked with
 cudaGetLastError; a failed launch raises. LAUNCHES counts the launches of
 each kernel; PLAIN_ON_CUDA counts calls of the plain PyTorch versions on CUDA
@@ -27,7 +29,35 @@ _PKG = os.path.dirname(os.path.abspath(__file__))
 SRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+#: threads per block of the walks (one lane each; at most WALK_MAX_THREADS,
+#: kMaxThreads in csrc/walk.cu)
+WALK_THREADS = 64
+WALK_MAX_THREADS = 128
+#: shared memory of each walk lane: its ring of 32 plane words and its 16
+#: staged output bytes (kLaneBytes in csrc/walk.cu)
+WALK_LANE_BYTES = 4 * 32 + 16
+
+
+def masked_ids(L: int) -> int:
+    """Tree ids a K3 block stages for L positions (masked_ids in
+    csrc/walk.cu): L + 15 (slots of a 16-slot group read ids past L without
+    a modulo), or 1 for the one-tree variant."""
+    return 1 if L == 1 else L + 15
+#: dynamic shared memory that one block may hold on an H100 (227 KB)
+SMEM_BYTES = 232448
+
+
+def _walk_smem(n_tables: int, n_ids: int, threads: int) -> int:
+    """Shared memory of a walk block (csrc/walk.cu ring_offset): the tables'
+    uint16 entries, the tree ids padded to 8, a lane area per thread."""
+    return 2 * n_tables + 2 * (-(-n_ids // 8) * 8) + WALK_LANE_BYTES * threads
+
+
+def table_budget(n_ids: int) -> int:
+    """Bytes left for a walk's tables beside n_ids tree ids and the rings of
+    the largest block."""
+    return SMEM_BYTES - _walk_smem(0, n_ids, WALK_MAX_THREADS)
 
 LAUNCHES = {"k1_histogram": 0, "k2_walk_uniform": 0, "k3_walk_masked": 0,
             "k3_walk_masked/plain2": 0, "k3_walk_masked/huffman": 0,
@@ -43,10 +73,10 @@ _I = ctypes.c_int
 _I64 = ctypes.c_int64
 _SIGNATURES = {
     "phyngsc_hist": [_P, _P, _I64, _I, _I, _P, _P],
-    "phyngsc_walk_uniform": [_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P,
-                             _P],
-    "phyngsc_walk_masked": [_P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                            _P, _P],
+    "phyngsc_walk_uniform": [_P, _I, _I, _P, _P, _I, _I, _I, _P, _I, _I, _P,
+                             _I, _I, _I, _I, _I, _P, _P],
+    "phyngsc_walk_masked": [_P, _I, _I, _P, _P, _P, _I, _I, _I, _P, _I, _I,
+                            _P, _I, _I, _I, _I, _I, _P, _P],
     "phyngsc_lookup": [_P, _P, _I64, _I, _I, _P, _P],
     "phyngsc_densify": [_P, _I64, _P, _P, _I, _I, _I, _P, _P],
 }
@@ -106,6 +136,8 @@ def build() -> ctypes.CDLL:
             if res.returncode != 0:
                 raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
                                    f"{res.stdout}{res.stderr}")
+            with open(f"{path}.log", "w") as f:
+                f.write(res.stdout + res.stderr)
             os.replace(tmp, path)
         lib = ctypes.CDLL(path)
         for name, argtypes in _SIGNATURES.items():
@@ -114,6 +146,17 @@ def build() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         _lib = lib
         return lib
+
+
+def build_log() -> str:
+    """nvcc's output for the loaded library (ptxas -v: registers, shared
+    memory and spills of each kernel)."""
+    build()
+    try:
+        with open(f"{library_path()}.log") as f:
+            return f.read()
+    except OSError:
+        return ""
 
 
 def _stream() -> int:
@@ -153,72 +196,103 @@ def histogram(sym: torch.Tensor, mask: torch.Tensor, A: int) -> torch.Tensor:
     return out
 
 
-def _check_plane(plane: torch.Tensor, S: int, lut_bits: int) -> None:
+def _check_plane(plane: torch.Tensor, S: int) -> None:
     _require(plane, "plane", torch.int32)
     if plane.ndim != 2 or S > plane.shape[1]:
         raise ValueError(f"walk: plane {tuple(plane.shape)} has fewer than "
                          f"{S} lanes")
-    if not 1 <= lut_bits <= 16:
-        raise ValueError(f"lut_bits {lut_bits} out of range")
 
 
-def walk_uniform(plane: torch.Tensor, totals: torch.Tensor,
-                 luts: torch.Tensor, tree_of_pos: torch.Tensor, lut_bits: int,
-                 G: int, Lt: int, L: int) -> torch.Tensor:
+def _aligned16(t: torch.Tensor) -> torch.Tensor:
+    """t itself when its data starts on a 16-byte boundary (the walks load
+    and store 16 bytes at a time), else an aligned copy."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _tables(luts, n_ids: int, threads: int):
+    """(packed table, the ctypes arguments of a walk's WalkLuts
+    (ops/bitpack.py): packed table, its length, k, n_primary, full LUTs,
+    n_trees, lut_bits). The caller holds the table until the launch."""
+    _require(luts.full, "luts", torch.int32)
+    _require(luts.packed, "packed luts", torch.int16)
+    n_trees, V = luts.full.shape
+    n = luts.packed.shape[0]
+    bits, k = luts.lut_bits, luts.k
+    if (not 1 <= k <= bits <= 16 or V != 1 << bits or n_trees < 1
+            or luts.n_primary != n_trees << k or n % 8 or n < luts.n_primary
+            or _walk_smem(n, n_ids, threads) > SMEM_BYTES):
+        raise ValueError(f"walk: bad tables k={k} lut_bits={bits} "
+                         f"n_trees={n_trees} entries={n}")
+    packed = _aligned16(luts.packed)
+    return packed, (packed.data_ptr(), n, k, luts.n_primary,
+                    luts.full.data_ptr(), n_trees, bits)
+
+
+def _threads() -> int:
+    if not 1 <= WALK_THREADS <= WALK_MAX_THREADS:
+        raise ValueError(f"walk: {WALK_THREADS} threads per block")
+    return WALK_THREADS
+
+
+def walk_uniform(plane: torch.Tensor, totals: torch.Tensor, luts,
+                 tree_of_pos: torch.Tensor, G: int, Lt: int,
+                 L: int) -> torch.Tensor:
     """K2: uniform-length walk of the S = len(totals) lanes of the (Wmax, Sp)
-    word plane -> (S*G, L) uint8 symbols (0 past each lane's total and at
-    positions >= Lt)."""
+    word plane with the WalkLuts `luts` (ops/bitpack.py walk_luts) ->
+    (S*G, L) uint8 symbols (0 past each lane's total and at positions >=
+    Lt)."""
     _require(totals, "totals", torch.int32)
     S = totals.shape[0]
-    _check_plane(plane, S, lut_bits)
-    _require(luts, "luts", torch.int32)
+    _check_plane(plane, S)
     _require(tree_of_pos, "tree_of_pos", torch.int32)
-    if (totals.ndim != 1 or luts.ndim != 2 or luts.shape[1] != 1 << lut_bits
-            or tree_of_pos.shape[0] < Lt or Lt > L):
+    if totals.ndim != 1 or tree_of_pos.shape[0] < Lt or Lt > L:
         raise ValueError("walk_uniform: bad shapes")
+    threads = _threads()
+    packed, tables = _tables(luts, Lt, threads)
     out = torch.zeros((S * G, L), dtype=torch.uint8, device=plane.device)
     if S == 0:
         return out
     rc = build().phyngsc_walk_uniform(
         plane.data_ptr(), plane.shape[0], plane.shape[1], totals.data_ptr(),
-        luts.data_ptr(), tree_of_pos.data_ptr(), lut_bits, S, G, Lt, L,
-        out.data_ptr(), _stream())
+        *tables, tree_of_pos.data_ptr(), S, G, Lt, L,
+        threads, out.data_ptr(), _stream())
     _check(rc, "k2_walk_uniform")
     _count(LAUNCHES, "k2_walk_uniform")
     return out
 
 
 def walk_masked(plane: torch.Tensor, totals: torch.Tensor,
-                keep: torch.Tensor, luts, tree_of_pos, lut_bits: int,
+                keep: torch.Tensor, luts, tree_of_pos,
                 plain2: bool) -> torch.Tensor:
     """K3: masked walk of the S = len(keep) lanes of the (Wmax, Sp) word
     plane over (S, T) slots -> (S, T) uint8 symbols (0 where keep is unset).
-    Slot t takes tree tree_of_pos[t % L] of the (n_trees, 2^lut_bits) int32
-    luts, L = len(tree_of_pos) dividing T; both are None for plain2. Counted
-    as the plain2, huffman (one position, the DNA stream) or quality
-    (per-position trees) variant."""
+    Slot t takes tree tree_of_pos[t % L] of the WalkLuts `luts`, L =
+    len(tree_of_pos) dividing T; both are None for plain2. Counted as the
+    plain2, huffman (one position, the DNA stream) or quality (per-position
+    trees) variant."""
     _require(totals, "totals", torch.int32)
     _require(keep, "keep", torch.uint8)
     if keep.ndim != 2 or totals.shape != keep.shape[:1]:
         raise ValueError("walk_masked: bad shapes")
     S, T = keep.shape
-    _check_plane(plane, S, lut_bits)
-    n_trees, L = 1, 1
+    _check_plane(plane, S)
+    threads = _threads()
+    L, packed, tables = 1, None, (None, 0, 0, 0, None, 1, 2)
     if not plain2:
-        _require(luts, "luts", torch.int32)
         _require(tree_of_pos, "tree_of_pos", torch.int32)
-        n_trees, L = luts.shape[0], tree_of_pos.shape[0]
-        if (luts.ndim != 2 or luts.shape[1] != 1 << lut_bits or n_trees < 1
-                or tree_of_pos.ndim != 1 or L < 1 or T % L):
-            raise ValueError("walk_masked: bad LUT or tree shapes")
+        L = tree_of_pos.shape[0]
+        if tree_of_pos.ndim != 1 or L < 1 or T % L:
+            raise ValueError("walk_masked: bad tree shapes")
+        packed, tables = _tables(luts, masked_ids(L), threads)
+    keep = _aligned16(keep)
     out = torch.zeros((S, T), dtype=torch.uint8, device=plane.device)
     if S == 0:
         return out
     rc = build().phyngsc_walk_masked(
         plane.data_ptr(), plane.shape[0], plane.shape[1], totals.data_ptr(),
-        keep.data_ptr(), None if plain2 else luts.data_ptr(),
-        None if plain2 else tree_of_pos.data_ptr(), n_trees, int(plain2),
-        lut_bits, S, T, L, out.data_ptr(), _stream())
+        keep.data_ptr(), *tables,
+        None if plain2 else tree_of_pos.data_ptr(), int(plain2), S, T, L,
+        threads, out.data_ptr(), _stream())
     _check(rc, "k3_walk_masked")
     variant = "plain2" if plain2 else "huffman" if L == 1 else "quality"
     _count(LAUNCHES, "k3_walk_masked", f"k3_walk_masked/{variant}")

@@ -14,11 +14,10 @@ import dataclasses
 import numpy as np
 import torch
 
-from phyngsc_tpu.config import CodecConfig
-from phyngsc_tpu.ops import huffman
-from phyngsc_tpu.utils.bitio import (BitReader, BitWriter, bit_length,
-                                     get_uint_array, put_uint_array)
-from phyngsc_tpu_torch.ops import bitpack, histogram, lookup
+from phyngsc_tpu_torch.config import CodecConfig
+from phyngsc_tpu_torch.utils.bitio import (BitReader, BitWriter, bit_length,
+                                           get_uint_array, put_uint_array)
+from phyngsc_tpu_torch.ops import bitpack, histogram, huffman, lookup
 
 ALPHABET = 256
 
@@ -219,17 +218,19 @@ def encode_device(seq: torch.Tensor, keep: torch.Tensor,
 
 
 def decode_huffman_walk(plane: torch.Tensor, keep: torch.Tensor,
-                        lut: torch.Tensor, records_per_substream: int,
+                        lut, records_per_substream: int,
                         lut_bits: int) -> torch.Tensor:
     """Huffman DNA decode on K3 (port of decode_huffman_walk): kept slots
     (record, position) consume the lane's next symbol. plane (Wmax, Sp)
-    from bitpack.dense_words, keep (S*G, L) bool, lut (2^lut_bits,) int32.
-    Returns (S*G, L) uint8 (0 where not kept)."""
+    from bitpack.dense_words, keep (S*G, L) bool, lut the host
+    (2^lut_bits,) int32 LUT (numpy or a CPU tensor). Returns (S*G, L) uint8
+    (0 where not kept)."""
     R, L = keep.shape
     S = R // records_per_substream
     tree = torch.zeros(1, dtype=torch.int32, device=keep.device)
-    syms = bitpack.walk_masked(plane, keep.reshape(S, -1), lut[None, :], tree,
-                               lut_bits, plain2=False)
+    luts = bitpack.walk_luts(np.asarray(lut)[None, :], lut_bits, plane.device)
+    syms = bitpack.walk_masked(plane, keep.reshape(S, -1), luts, tree,
+                               plain2=False)
     return syms.reshape(R, L)
 
 
@@ -239,7 +240,7 @@ def decode_plain_walk(plane: torch.Tensor, keep: torch.Tensor,
     Returns (S*G, L) uint8 bases (0 where not kept)."""
     R, L = keep.shape
     S = R // records_per_substream
-    syms = bitpack.walk_masked(plane, keep.reshape(S, -1), None, None, 12,
+    syms = bitpack.walk_masked(plane, keep.reshape(S, -1), None, None,
                                plain2=True).reshape(R, L)
     return torch.where(keep, _table(ACGT, keep.device)[syms.long()], 0).to(
         torch.uint8)

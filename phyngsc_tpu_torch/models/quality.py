@@ -15,11 +15,11 @@ import dataclasses
 import numpy as np
 import torch
 
-from phyngsc_tpu.config import CodecConfig
-from phyngsc_tpu.ops import huffman
-from phyngsc_tpu.utils.bitio import (BitReader, BitWriter, bit_length,
-                                     get_uint_array, put_uint_array)
-from phyngsc_tpu_torch.ops import bitpack, histogram, lookup
+from phyngsc_tpu_torch.config import CodecConfig
+from phyngsc_tpu_torch.utils.bitio import (BitReader, BitWriter, bit_length,
+                                           get_uint_array, put_uint_array)
+from phyngsc_tpu_torch import kernels
+from phyngsc_tpu_torch.ops import bitpack, histogram, huffman, lookup
 
 ALPHABET = 256
 MAX_TREES = 256
@@ -115,7 +115,7 @@ def build_tables_adaptive(counts: np.ndarray, cfg: CodecConfig):
     counts = np.asarray(counts)
     tables = build_tables(counts, cfg)
     T0 = counts.shape[0]
-    from phyngsc_tpu.container import footer as _footer
+    from phyngsc_tpu_torch.container import footer as _footer
 
     if T0 > 1 and _footer.VERSION >= 4:
         c64 = counts.astype(np.int64)
@@ -153,7 +153,7 @@ def build_tables_adaptive(counts: np.ndarray, cfg: CodecConfig):
 
 def build_tables(counts: np.ndarray, cfg: CodecConfig) -> QualityTables:
     counts = np.asarray(counts)
-    from phyngsc_tpu.utils import native
+    from phyngsc_tpu_torch.utils import native
 
     built = native.huffman_lengths(counts, cfg.max_code_len)
     if built is not None:
@@ -196,38 +196,39 @@ def encode_device(qual: torch.Tensor, lens: torch.Tensor,
 
 # -- decode -----------------------------------------------------------------
 
-def decode_walk(plane: torch.Tensor, lens: torch.Tensor, luts: torch.Tensor,
-                L: int, Lt: int, records_per_substream: int, lut_bits: int,
+def decode_walk(plane: torch.Tensor, lens: torch.Tensor, luts, L: int,
+                Lt: int, records_per_substream: int, lut_bits: int,
                 legacy: bool = False) -> torch.Tensor:
     """Uniform-length decode on K2 (port of decode_device_walk): plane
     (Wmax, Sp) int32 word plane from bitpack.dense_words, lens (S*G,) record
-    lengths (Lt or 0), luts (n_trees, 2^lut_bits) int32. Returns (S*G, L)
-    uint8 (0 where invalid)."""
+    lengths (Lt or 0), luts the host (n_trees, 2^lut_bits) int32 LUTs
+    (numpy or a CPU tensor). Returns (S*G, L) uint8 (0 where invalid)."""
     G = records_per_substream
     S = lens.shape[0] // G
-    n_trees = luts.shape[0]
+    luts = bitpack.walk_luts(luts, lut_bits, plane.device, max(Lt, 1))
     totals = lens.reshape(S, G).sum(dim=1, dtype=torch.int32)
     tid = tree_of_position(torch.arange(max(Lt, 1), device=plane.device),
-                           n_trees, L, legacy)
-    return bitpack.walk_uniform(plane, totals, luts, tid, lut_bits, G, Lt, L)
+                           luts.n_trees, L, legacy)
+    return bitpack.walk_uniform(plane, totals, luts, tid, G, Lt, L)
 
 
-def decode_walk_masked(plane: torch.Tensor, lens: torch.Tensor,
-                       luts: torch.Tensor, L: int,
-                       records_per_substream: int, lut_bits: int,
+def decode_walk_masked(plane: torch.Tensor, lens: torch.Tensor, luts,
+                       L: int, records_per_substream: int, lut_bits: int,
                        legacy: bool = False) -> torch.Tensor:
     """Variable-length decode on K3 (port of decode_device_walk_masked): slot
     t = g*L + p of lane s is position p of record s*G + g, consumes a symbol
     only where p < its record's length, and takes tree
     tree_of_position(p). plane (Wmax, Sp) from bitpack.dense_words, lens
-    (S*G,) record lengths. Returns (S*G, L) uint8 (0 where invalid)."""
+    (S*G,) record lengths, luts the host LUTs as for decode_walk. Returns
+    (S*G, L) uint8 (0 where invalid)."""
     G = records_per_substream
     S = lens.shape[0] // G
+    luts = bitpack.walk_luts(luts, lut_bits, plane.device,
+                             kernels.masked_ids(L))
     slots = valid_mask(lens, L).reshape(S, G * L)
     tid = tree_of_position(torch.arange(L, device=plane.device),
-                           luts.shape[0], L, legacy)
-    syms = bitpack.walk_masked(plane, slots, luts, tid, lut_bits,
-                               plain2=False)
+                           luts.n_trees, L, legacy)
+    syms = bitpack.walk_masked(plane, slots, luts, tid, plain2=False)
     return syms.reshape(S * G, L)
 
 

@@ -36,12 +36,12 @@ from typing import List, Optional
 
 import numpy as np
 
-from phyngsc_tpu.config import CodecConfig
-from phyngsc_tpu.ops import huffman
+from phyngsc_tpu_torch.config import CodecConfig
+from phyngsc_tpu_torch.ops import huffman
 from phyngsc_tpu_torch.ops import bitpack_host as bitpack
-from phyngsc_tpu.utils.bitio import (BitReader, BitWriter, bit_length,
-                                     get_uint_array, put_uint_array)
-from phyngsc_tpu.utils.shapes import bucket_records
+from phyngsc_tpu_torch.utils.bitio import (BitReader, BitWriter, bit_length,
+                                           get_uint_array, put_uint_array)
+from phyngsc_tpu_torch.utils.shapes import bucket_records
 
 SEPARATORS = b" ._,=:/-#"
 _SEP_LOOKUP = np.zeros(256, dtype=bool)
@@ -136,7 +136,7 @@ def field_content(titles: np.ndarray, tok: Tokenized, f: int) -> np.ndarray:
     W = int(tok.lens[:, f].max()) if R else 0
     if W == 0:
         return np.zeros((R, 0), np.uint8)
-    from phyngsc_tpu.utils import native
+    from phyngsc_tpu_torch.utils import native
 
     TL = titles.shape[1]
     flat_starts = np.arange(R, dtype=np.int64) * TL + tok.starts[:, f]
@@ -273,7 +273,7 @@ def _numeric_pre(V: np.ndarray) -> _NumPre:
     R, F = V.shape
     pre = _NumPre()
     if R >= 2:
-        from phyngsc_tpu.utils import native
+        from phyngsc_tpu_torch.utils import native
 
         B = BLOCK_RECORDS
         ns = native.numeric_stats(V, B)
@@ -649,7 +649,7 @@ class TitleContext:
 
     @classmethod
     def build(cls, titles: np.ndarray, tlens: np.ndarray) -> "TitleContext":
-        from phyngsc_tpu.utils import native
+        from phyngsc_tpu_torch.utils import native
 
         R = titles.shape[0]
         scan = native.title_scan(titles, tlens, SEPARATORS) if R else None
@@ -962,7 +962,7 @@ def decode(enc_plan: TitlePlan, fixed_words: np.ndarray, char_words: np.ndarray,
         # native fused walk: decodes straight into per-field matrices
         # (no (S,T) tree maps / (R,W) index matrices — the numpy path below
         # measured as the decompressor's host wall)
-        from phyngsc_tpu.utils import native
+        from phyngsc_tpu_torch.utils import native
 
         Fw = len(walk_fields)
         steps = np.empty((R, Fw), np.int32)
@@ -1095,7 +1095,7 @@ def _assemble_titles(plan: TitlePlan, field_vals: dict, field_lens: np.ndarray,
     TL = int(tlens.max()) if R else 0
     F = plan.n_fields
     if R:
-        from phyngsc_tpu.utils import native
+        from phyngsc_tpu_torch.utils import native
 
         kinds = np.array([p.kind for p in plan.fields], np.int32)
         nvals_list: list = []

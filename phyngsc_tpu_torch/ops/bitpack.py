@@ -8,11 +8,17 @@ Decode: dense_words (K5, csrc/densify.cu) lays the linear word stream out
 as the (Wmax, Sp) lane-minor plane, word w of lane s at [w, s], and
 walk_uniform (K2) and walk_masked (K3) walk that plane (csrc/walk.cu); CPU
 tensors take the plain versions, the walks stepping all lanes in lockstep,
-one step per loop iteration. Words travel as int32 tensors holding the
-uint32 bits, and are widened to int64 for bit work.
+one step per loop iteration. The walks take their LUTs as WalkLuts
+(walk_luts): the full int32 tables, which the plain versions read, and the
+16-bit two-level tables that the kernels stage in shared memory
+(two_level_luts), both built on the host from the host LUTs. Words travel
+as int32 tensors holding the uint32 bits, and are widened to int64 for bit
+work.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -129,6 +135,107 @@ def dense_words(words: torch.Tensor, sub_n_words: torch.Tensor, Wmax: int,
                            sub_n_words.to(torch.int32).contiguous(), Wmax, Sp)
 
 
+#: bit 15 of a two-level entry: look further (a primary entry names a
+#: secondary block, a secondary entry sends the lookup to the full LUT)
+ESCAPE = 0x8000
+
+
+def two_level_luts(luts, lut_bits: int, budget: int):
+    """The kernels' shared-memory form of (n_trees, 2^lut_bits) int32 LUTs
+    whose entries are (len << 9) | sym: for the largest k <= lut_bits whose
+    tables fit `budget` bytes, one uint16 array holding a (n_trees, 2^k)
+    primary table, then secondary blocks of 2^d entries, d = lut_bits - k.
+    Let i be a window's top lut_bits bits and j = i >> d its top k bits.
+    Where every entry of tree t under prefix j is the same value below
+    2^15, primary[t, j] is that value; else primary[t, j] = ESCAPE | b and
+    secondary block b holds the tree's entries i of that prefix, each the
+    full LUT's value, or ESCAPE where it does not fit 15 bits (no table
+    built from code lengths has one), for which the kernel reads the full
+    LUT. So the lookup equals the full LUT for every window and any int32
+    contents. Returns (table padded with zeros to a multiple of 8 entries,
+    k, n_primary = n_trees << k). Raises ValueError when not even k = 1
+    fits."""
+    luts = np.asarray(luts, dtype=np.int32)
+    n_trees, V = luts.shape
+    if V != 1 << lut_bits or n_trees < 1:
+        raise ValueError(f"LUTs of shape {luts.shape} for {lut_bits} bits")
+    fits = luts.view(np.uint32) < ESCAPE  # in [0, 2^15)
+    # direct[t, j]: the 2^d entries of tree t under prefix j are one value
+    # that fits, first[t, j]; each step to a smaller k halves both
+    direct, first = fits, luts
+    for k in range(lut_bits, 0, -1):
+        d = lut_bits - k
+        if d:
+            u = direct.reshape(n_trees, -1, 2)
+            v = first.reshape(n_trees, -1, 2)
+            direct = u[..., 0] & u[..., 1] & (v[..., 0] == v[..., 1])
+            first = v[..., 0]
+        n_esc = int(direct.size - np.count_nonzero(direct))
+        n = (n_trees << k) + (n_esc << d)
+        if 2 * n <= budget and n_esc < ESCAPE:
+            break
+    else:
+        raise ValueError(f"{n_trees} LUTs of {lut_bits} bits do not fit "
+                         f"{budget} B of shared memory")
+    table = np.zeros(-(-n // 8) * 8, dtype=np.uint16)
+    primary = table[:n_trees << k].reshape(direct.shape)
+    primary[...] = first
+    escaped = ~direct
+    primary[escaped] = ESCAPE + np.arange(n_esc)  # block ids, tree-major
+    blocks = luts.reshape(n_trees, 1 << k, 1 << d)[escaped]
+    table[n_trees << k:n] = np.where(
+        fits.reshape(n_trees, 1 << k, 1 << d)[escaped], blocks,
+        ESCAPE).ravel()
+    return table, k, n_trees << k
+
+
+def two_level_entry(table: torch.Tensor, k: int, n_primary: int,
+                    lut_bits: int, luts: torch.Tensor, tree: torch.Tensor,
+                    win: torch.Tensor) -> torch.Tensor:
+    """The kernels' lookup (csrc/walk.cu Tables::entry) in plain torch: the
+    entry of tree `tree` for 32-bit windows `win` (int64 tensors of one
+    shape), from two_level_luts' table (int64 values) and, for flagged
+    entries, the full luts."""
+    d = lut_bits - k
+    i = win >> (32 - lut_bits)
+    e = table[(tree << k) + (win >> (32 - k))]
+    esc = (e & ESCAPE) != 0
+    sec = table[torch.where(esc, n_primary + ((e & ~ESCAPE) << d)
+                            + (i & ((1 << d) - 1)), 0)]
+    e = torch.where(esc, sec, e)
+    glob = esc & ((sec & ESCAPE) != 0)
+    return torch.where(glob, luts[tree, i], e)
+
+
+@dataclasses.dataclass
+class WalkLuts:
+    """A sub-block's decode LUTs as the walks take them (see walk_luts)."""
+
+    full: torch.Tensor    # (n_trees, 2^lut_bits) int32 (len << 9) | sym
+    packed: torch.Tensor  # two_level_luts' table, int16 holding uint16
+    k: int
+    n_primary: int
+    lut_bits: int
+
+    @property
+    def n_trees(self) -> int:
+        return int(self.full.shape[0])
+
+
+def walk_luts(luts, lut_bits: int, device, n_ids: int = 1) -> WalkLuts:
+    """Host (n_trees, 2^lut_bits) int32 LUTs -> WalkLuts on `device`: the
+    full tables and their two-level form (two_level_luts) in the shared
+    memory that a walk block leaves beside n_ids tree ids (K2: Lt, K3:
+    kernels.masked_ids(L); kernels.table_budget), both built on the host and
+    uploaded, so that nothing waits on the device."""
+    full = np.ascontiguousarray(luts, dtype=np.int32)
+    table, k, n_primary = two_level_luts(full, lut_bits,
+                                         kernels.table_budget(n_ids))
+    return WalkLuts(torch.from_numpy(full).to(device),
+                    torch.from_numpy(table.view(np.int16)).to(device),
+                    k, n_primary, lut_bits)
+
+
 def _walk_plain(plane, luts, tree_step, consume, lut_bits, plain2):
     """The LUT walk of lanes 0..S-1 of the (Wmax, Sp) plane in lockstep:
     step t of lane s reads the 32-bit window at its cursor, looks
@@ -180,18 +287,17 @@ def walk_uniform_plain(plane, totals, luts, tree_of_pos, lut_bits: int,
     return out
 
 
-def walk_uniform(plane, totals, luts, tree_of_pos, lut_bits: int, G: int,
+def walk_uniform(plane, totals, luts: WalkLuts, tree_of_pos, G: int,
                  Lt: int, L: int) -> torch.Tensor:
     """K2 wrapper. plane (Wmax, Sp) int32 (uint32 bits) from dense_words,
-    totals (S,) symbols per lane, luts (n_trees, 2^lut_bits) int32 entries
-    (len << 9) | sym, tree_of_pos (>= Lt,) int32. Returns (S*G, L) uint8."""
+    totals (S,) symbols per lane, luts from walk_luts, tree_of_pos (>= Lt,)
+    int32. Returns (S*G, L) uint8."""
     if plane.device.type == "cpu":
-        return walk_uniform_plain(plane, totals, luts, tree_of_pos, lut_bits,
-                                  G, Lt, L)
+        return walk_uniform_plain(plane, totals, luts.full, tree_of_pos,
+                                  luts.lut_bits, G, Lt, L)
     return kernels.walk_uniform(
-        plane.contiguous(), totals.to(torch.int32).contiguous(),
-        luts.to(torch.int32).contiguous(),
-        tree_of_pos.to(torch.int32).contiguous(), lut_bits, G, Lt, L)
+        plane.contiguous(), totals.to(torch.int32).contiguous(), luts,
+        tree_of_pos.to(torch.int32).contiguous(), G, Lt, L)
 
 
 def walk_masked_plain(plane, keep, luts, tree_of_pos, lut_bits: int,
@@ -213,16 +319,18 @@ def walk_masked_plain(plane, keep, luts, tree_of_pos, lut_bits: int,
     return syms.to(torch.uint8)
 
 
-def walk_masked(plane, keep, luts, tree_of_pos, lut_bits: int,
+def walk_masked(plane, keep, luts: WalkLuts | None, tree_of_pos,
                 plain2: bool) -> torch.Tensor:
-    """K3 wrapper; see walk_masked_plain."""
+    """K3 wrapper; see walk_masked_plain. luts from walk_luts, or None with
+    tree_of_pos for plain2."""
     if plane.device.type == "cpu":
-        return walk_masked_plain(plane, keep, luts, tree_of_pos, lut_bits,
-                                 plain2)
+        if plain2:  # fixed 2-bit codes: no table
+            return walk_masked_plain(plane, keep, None, None, 2, True)
+        return walk_masked_plain(plane, keep, luts.full, tree_of_pos,
+                                 luts.lut_bits, False)
     keep8 = keep.to(torch.uint8).contiguous()
     totals = keep8.sum(dim=1, dtype=torch.int32)
     if not plain2:
-        luts = luts.to(torch.int32).contiguous()
         tree_of_pos = tree_of_pos.to(torch.int32).contiguous()
     return kernels.walk_masked(plane.contiguous(), totals, keep8, luts,
-                               tree_of_pos, lut_bits, plain2)
+                               tree_of_pos, plain2)

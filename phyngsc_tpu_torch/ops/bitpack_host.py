@@ -90,7 +90,7 @@ def unpack_substreams_np(words: np.ndarray, sub_word_start: np.ndarray,
     Python iteration — n_steps is O(title chars/substream) on real variable
     titles), numpy fallback otherwise. Both bit-identical to
     unpack_substreams."""
-    from phyngsc_tpu.utils import native
+    from phyngsc_tpu_torch.utils import native
 
     out = native.unpack_substreams(
         np.concatenate([np.asarray(words, np.uint32),

@@ -7,7 +7,8 @@ bucket decision on the calling thread in task order, all device work on
 PyTorch's current stream), frames them into fixed-size blocks and writes the
 footer. compress_file streams a memmapped input to a file; stats_out
 collects a CompressStats per writer. The host partitioning, indexing,
-framing and footer are phyngsc_tpu's own modules; the driver functions,
+framing and footer are the port's copies of phyngsc_tpu's modules
+(container/, parallel/, utils/); the driver functions,
 CompressStats and resolve_substream are copied from
 phyngsc_tpu/pipeline/compress.py (which imports jax). Sharded encode
 (data_shards > 1) is a later slice.
@@ -25,12 +26,13 @@ from typing import List, Optional
 
 import numpy as np
 
-from phyngsc_tpu.config import CodecConfig
-from phyngsc_tpu.container import block as blockmod
-from phyngsc_tpu.container import footer as footermod
-from phyngsc_tpu.parallel.partition import partition_regions, split_subblocks
-from phyngsc_tpu.utils.fastq import FastqFormatError, index_records
-from phyngsc_tpu.utils.shapes import BucketCtx, bucket_length
+from phyngsc_tpu_torch.config import CodecConfig
+from phyngsc_tpu_torch.container import block as blockmod
+from phyngsc_tpu_torch.container import footer as footermod
+from phyngsc_tpu_torch.parallel.partition import (partition_regions,
+                                                  split_subblocks)
+from phyngsc_tpu_torch.utils.fastq import FastqFormatError, index_records
+from phyngsc_tpu_torch.utils.shapes import BucketCtx, bucket_length
 from phyngsc_tpu_torch import host_runtime
 from phyngsc_tpu_torch.device import resolve
 from phyngsc_tpu_torch.pipeline import subblock as sbmod

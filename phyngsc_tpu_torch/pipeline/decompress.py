@@ -20,9 +20,9 @@ from typing import Optional
 
 import numpy as np
 
-from phyngsc_tpu.config import CodecConfig
-from phyngsc_tpu.container import block as blockmod
-from phyngsc_tpu.container import footer as footermod
+from phyngsc_tpu_torch.config import CodecConfig
+from phyngsc_tpu_torch.container import block as blockmod
+from phyngsc_tpu_torch.container import footer as footermod
 from phyngsc_tpu_torch import host_runtime
 from phyngsc_tpu_torch.device import resolve
 from phyngsc_tpu_torch.pipeline import subblock as sbmod

@@ -24,10 +24,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from phyngsc_tpu.config import CodecConfig
-from phyngsc_tpu.utils.bitio import BitReader, BitWriter
-from phyngsc_tpu.utils.fastq import FastqFormatError, RecordIndex
-from phyngsc_tpu.utils.shapes import bucket_length, bucket_records
+from phyngsc_tpu_torch.config import CodecConfig
+from phyngsc_tpu_torch.utils.bitio import BitReader, BitWriter
+from phyngsc_tpu_torch.utils.fastq import FastqFormatError, RecordIndex
+from phyngsc_tpu_torch.utils.shapes import bucket_length, bucket_records
 from phyngsc_tpu_torch.models import dna, quality, title
 from phyngsc_tpu_torch.ops import bitpack, lookup
 from phyngsc_tpu_torch.ops.bitpack_host import bytes_to_words, words_to_bytes
@@ -50,7 +50,7 @@ def _gather_matrix(buf: np.ndarray, starts: np.ndarray, lens: np.ndarray,
     R = starts.shape[0]
     if R == 0 or width == 0:
         return np.zeros((R, max(width, 1)), np.uint8)
-    from phyngsc_tpu.utils import native
+    from phyngsc_tpu_torch.utils import native
 
     out = native.gather(buf, starts, lens, width)
     if out is not None:
@@ -156,7 +156,7 @@ def stage_a(buf: np.ndarray, idx: RecordIndex, cfg: CodecConfig,
             f"read length {Lt} exceeds the container's 65535 limit")
     tlens_np = st.tlens_np = (idx.title_end - idx.title_start).astype(np.int32)
     TL = int(tlens_np.max()) if R else 1
-    from phyngsc_tpu.utils import native as _native
+    from phyngsc_tpu_torch.utils import native as _native
 
     g3 = (_native.gather3(buf, idx.title_start, tlens_np, TL,
                           idx.seq_start, idx.qual_start, lens_np, L)
@@ -419,7 +419,6 @@ def _decode_device(p: _DParsed, cfg: CodecConfig, device) -> torch.Tensor:
               else np.zeros((1, V), np.int32))
     q_plane = bitpack.dense_words(_upload_words(p.q_words, device),
                                   _to_device(p.q_sub, device), q_wmax, sp)
-    q_luts = _to_device(q_luts, device)
     if p.variable:
         qual_t = quality.decode_walk_masked(
             q_plane, lens, q_luts, p.L, p.G, cfg.max_code_len,
@@ -434,9 +433,9 @@ def _decode_device(p: _DParsed, cfg: CodecConfig, device) -> torch.Tensor:
     if p.d_plan.mode == dna.MODE_PLAIN:
         dna_syms = dna.decode_plain_walk(d_plane, keep, p.G)
     else:
-        lut = _to_device(p.d_plan.luts(cfg.max_code_len)[0], device)
-        dna_syms = dna.decode_huffman_walk(d_plane, keep, lut, p.G,
-                                           cfg.max_code_len)
+        dna_syms = dna.decode_huffman_walk(
+            d_plane, keep, p.d_plan.luts(cfg.max_code_len)[0], p.G,
+            cfg.max_code_len)
     seq, qual = dna.restore_ambiguity(dna_syms, qual_t, lens)
     if p.is_delta:
         seq = dna.delta_untranslate(seq, lens)
@@ -476,7 +475,7 @@ def _reassemble(R, lens_np, titles_np, tlens_np, seq_np, qual_np) -> bytes:
     rec_bytes = tlens_np.astype(np.int64) + 1 + lens_np.astype(np.int64) + 1 + 2 + lens_np.astype(np.int64) + 1
     offs = np.concatenate([[0], np.cumsum(rec_bytes)])
     if R:
-        from phyngsc_tpu.utils import native
+        from phyngsc_tpu_torch.utils import native
 
         res = native.fastq_assemble(titles_np[:R], tlens_np[:R], seq_np[:R],
                                     qual_np[:R], lens_np[:R], offs[:-1],

@@ -1,7 +1,7 @@
 """The port's command line (phyngsc_tpu_torch.cli) against phyngsc_tpu's:
 the same compress flags write the same .ngsct bytes, decompress and verify
-restore the input, .ngsc export / import round-trip through phyngsc_tpu's
-host code, --profile writes a torch.profiler trace, and what the port does
+restore the input, .ngsc export / import round-trip through the port's
+copies of phyngsc_tpu's host code, --profile writes a torch.profiler trace, and what the port does
 not take (--data-shards > 1, --device cuda without a card) raises. The
 codec runs its plain versions (--device cpu)."""
 
@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from phyngsc_tpu import cli as jcli
-from phyngsc_tpu.utils.fastq import synthesize_fastq
+from phyngsc_tpu_torch.utils.fastq import synthesize_fastq
 from phyngsc_tpu_torch import cli
 
 FLAGS = ["--block-size", str(1 << 16), "--subblock-bytes", str(32 << 10),

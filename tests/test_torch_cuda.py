@@ -3,8 +3,11 @@ card, at edge shapes the smoke test does not reach: several position tiles
 and out-of-alphabet symbols (K1, K4), pad lanes, empty lanes, streams with
 no words and tables pointing past the words (K5), merged and singleton
 trees, dead lanes and cursors running past the plane's rows (K2, K3, on the
-plane K5 builds), per-position trees over variable lengths (K3), and round
-trips of every input class. Skipped
+plane K5 builds), per-position trees over variable lengths (K3), both
+branches of the walks' shared-memory tables (full tables and two-level
+tables with escapes) on corrupt streams, lanes whose slot ranges are not
+16-byte aligned, lanes past 2^16 words, and round trips of every input
+class. Skipped
 without a CUDA device; on the card (which has no jax) run
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -14,8 +17,8 @@ import numpy as np
 import pytest
 import torch
 
-from phyngsc_tpu.config import CodecConfig
-from phyngsc_tpu.utils.fastq import synthesize_fastq
+from phyngsc_tpu_torch.config import CodecConfig
+from phyngsc_tpu_torch.utils.fastq import synthesize_fastq
 from phyngsc_tpu_torch import kernels
 from phyngsc_tpu_torch.models import dna, quality
 from phyngsc_tpu_torch.ops import bitpack, bitpack_host, histogram, lookup
@@ -106,9 +109,9 @@ def test_densify_kernel(cuda, S, max_words, n_short):
                                           (1024, 76, 76)])
 def test_uniform_walk_kernel(cuda, R, Lt, n_trees):
     qual, lens, L, tables, words, sub = _quality_case(R, 1024, Lt, n_trees, R)
-    luts = torch.from_numpy(tables.luts(BITS))
+    luts = tables.luts(BITS)
     got = quality.decode_walk(_plane(words, sub, cuda), lens.to(cuda),
-                              luts.to(cuda), L, Lt, G, BITS).cpu()
+                              luts, L, Lt, G, BITS).cpu()
     ref = quality.decode_walk(_plane(words, sub, "cpu"), lens, luts, L, Lt, G,
                               BITS)
     assert torch.equal(got, ref)
@@ -137,9 +140,8 @@ def test_masked_walk_kernel(cuda, alphabet):
         got = dna.decode_plain_walk(plane, k.to(cuda), G).cpu()
         ref = dna.decode_plain_walk(plane_c, k, G)
     else:
-        lut = torch.from_numpy(plan.luts(BITS)[0])
-        got = dna.decode_huffman_walk(plane, k.to(cuda), lut.to(cuda), G,
-                                      BITS).cpu()
+        lut = plan.luts(BITS)[0]
+        got = dna.decode_huffman_walk(plane, k.to(cuda), lut, G, BITS).cpu()
         ref = dna.decode_huffman_walk(plane_c, k, lut, G, BITS)
     assert torch.equal(got, ref)
     assert np.array_equal(got.numpy(), np.where(keep, seq, 0))
@@ -153,8 +155,9 @@ def test_walks_past_the_end(cuda):
     luts = (torch.arange(1 << 8, dtype=torch.int32) | (3 << 9))[None, :]
     tid = torch.zeros(4, dtype=torch.int32)
     totals = torch.tensor([32, 30, 8], dtype=torch.int32)  # 96 bits > 64
-    got = bitpack.walk_uniform(plane.to(cuda), totals.to(cuda), luts.to(cuda),
-                               tid.to(cuda), 8, 8, 4, 4).cpu()
+    got = bitpack.walk_uniform(plane.to(cuda), totals.to(cuda),
+                               bitpack.walk_luts(luts, 8, cuda),
+                               tid.to(cuda), 8, 4, 4).cpu()
     ref = bitpack.walk_uniform_plain(plane, totals, luts, tid, 8, 8, 4, 4)
     assert torch.equal(got, ref)
     keep = torch.rand((3, 40), generator=torch.Generator().manual_seed(1)) < 0.7
@@ -163,8 +166,9 @@ def test_walks_past_the_end(cuda):
                               (False, luts.repeat(2, 1), trees)):
         bits = 12 if plain2 else 8
         got = bitpack.walk_masked(
-            plane.to(cuda), keep.to(cuda), None if plain2 else lut.to(cuda),
-            None if plain2 else tree.to(cuda), bits, plain2).cpu()
+            plane.to(cuda), keep.to(cuda),
+            None if plain2 else bitpack.walk_luts(lut, bits, cuda),
+            None if plain2 else tree.to(cuda), plain2).cpu()
         ref = bitpack.walk_masked_plain(plane, keep, lut, tree, bits, plain2)
         assert torch.equal(got, ref)
 
@@ -217,11 +221,11 @@ def test_masked_walk_kernel_per_position_trees(cuda, Lmax, n_trees, legacy):
         torch.from_numpy(enc.lens.astype(np.int64)), G, qual.size + 64)
     words = torch.from_numpy(
         w[: int(total)].numpy().astype(np.uint32).view(np.int32))
-    luts = torch.from_numpy(tables.luts(BITS))
+    luts = tables.luts(BITS)
     plane = _plane(words, sub, cuda)
     before = kernels.LAUNCHES["k3_walk_masked/quality"]
-    got = quality.decode_walk_masked(plane, ln.to(cuda), luts.to(cuda), L, G,
-                                     BITS, legacy).cpu()
+    got = quality.decode_walk_masked(plane, ln.to(cuda), luts, L, G, BITS,
+                                     legacy).cpu()
     assert kernels.LAUNCHES["k3_walk_masked/quality"] == before + 1
     ref = quality.decode_walk_masked(_plane(words, sub, "cpu"), ln, luts, L,
                                      G, BITS, legacy)
@@ -272,3 +276,119 @@ def test_round_trip_on_card_matches_cpu(cuda):
     blob = compress_bytes(data, cfg, 2, device=cuda)
     assert blob == compress_bytes(data, cfg, 2, device="cpu")
     assert decompress_bytes(blob, device=cuda) == data
+
+
+def _walk_luts_case(variant, rng):
+    """Host LUTs of each walk variant: for K2 and K3 quality, five trees
+    (skewed codes of up to 12 bits, a zero-bit singleton, 256 codes of 8
+    bits, and random entries, a third too wide for 15 bits, which send the
+    kernel to the full LUT); the first alone for K3 Huffman."""
+    from phyngsc_tpu_torch.ops import huffman
+
+    freqs = np.zeros((4, 256), np.int64)
+    freqs[0] = rng.zipf(1.3, size=256) * (rng.random(256) < 0.4)
+    freqs[1] = rng.zipf(1.6, size=256) * (rng.random(256) < 0.2)
+    freqs[2, 65] = 1000
+    freqs[3, :] = 1
+    sing = np.array([-1, -1, 65, -1], np.int32)
+    sym, ln = huffman.decode_lut_batch(
+        huffman.build_code_lengths_batch(freqs, BITS), BITS, sing)
+    luts = np.concatenate([
+        (ln.astype(np.int32) << 9) | sym.astype(np.int32),
+        rng.integers(0, 3 << 15, size=(1, 1 << BITS)).astype(np.int32)])
+    return luts[:1] if variant == "huffman" else luts
+
+
+def _walk_luts(luts, branch, L, cuda):
+    """WalkLuts of k = 12 (the tables fit whole) or k = 8 (two-level tables
+    with escapes: the budget of exactly 8 primary bits)."""
+    budget = kernels.table_budget(kernels.masked_ids(L))
+    if branch != "fits":
+        blocks = luts.reshape(luts.shape[0], 1 << 8, -1)
+        same = (blocks == blocks[..., :1]).all(-1) & (blocks[..., 0] < 0x8000)
+        budget = 2 * ((luts.shape[0] << 8)
+                      + (int((~same).sum()) << (BITS - 8)))
+    table, k, n_primary = bitpack.two_level_luts(luts, BITS, budget)
+    return bitpack.WalkLuts(torch.from_numpy(luts).to(cuda),
+                            torch.from_numpy(table.view(np.int16)).to(cuda),
+                            k, n_primary, BITS)
+
+
+@pytest.mark.parametrize("G_,L", [(16, 36), (3, 5)])
+@pytest.mark.parametrize("branch", ["fits", "two-level"])
+@pytest.mark.parametrize("variant", ["k2", "plain2", "huffman", "quality"])
+def test_walk_kernels_match_plain(cuda, variant, branch, G_, L):
+    """K2 and each K3 variant against their plain versions on a corrupt
+    stream (random words, so cursors run past the plane's rows), with a
+    third of the lanes dead, keep bytes other than 0 and 1, clamped tree ids
+    (K3) and, at G = 3, L = 5, lane ranges of 15 slots, so no lane after
+    the first starts on a 16-byte boundary."""
+    rng = np.random.default_rng(len(variant) + G_ + (branch == "fits"))
+    S, Sp, Wmax = 300, 384, 64
+    plane = torch.from_numpy(rng.integers(0, 1 << 32, size=(Wmax, Sp),
+                                          dtype=np.uint64).astype(
+                                              np.uint32).view(np.int32))
+    dead = rng.random(S) < 0.33
+    if variant == "plain2":
+        wl = None
+    else:
+        luts = _walk_luts_case(variant, rng)
+        wl = _walk_luts(luts, branch, L, cuda)
+        assert wl.k == (BITS if branch == "fits" else 8)
+        full = torch.from_numpy(luts)
+    if variant == "k2":
+        Lt = L - 1
+        totals = torch.from_numpy(np.where(dead, 0, rng.integers(
+            1, G_ * Lt + 5, size=S)).astype(np.int32))
+        tid = torch.from_numpy(rng.integers(0, luts.shape[0], size=L).astype(
+            np.int32))
+        got = bitpack.walk_uniform(plane.to(cuda), totals.to(cuda), wl,
+                                   tid.to(cuda), G_, Lt, L).cpu()
+        ref = bitpack.walk_uniform_plain(plane, totals, full, tid, BITS, G_,
+                                         Lt, L)
+    else:
+        T = G_ * L
+        keep = rng.choice(np.array([0, 1, 7], np.uint8), size=(S, T),
+                          p=[0.2, 0.7, 0.1])
+        keep[dead] = 0
+        keep = torch.from_numpy(keep)
+        tid = None
+        if variant == "huffman":
+            tid = torch.zeros(1, dtype=torch.int32)
+        elif variant == "quality":
+            tid = torch.from_numpy(rng.integers(
+                -2, luts.shape[0] + 2, size=L).astype(np.int32))
+        got = bitpack.walk_masked(plane.to(cuda), keep.to(cuda), wl,
+                                  None if tid is None else tid.to(cuda),
+                                  variant == "plain2").cpu()
+        ref = bitpack.walk_masked_plain(plane, keep, None if wl is None
+                                        else full, tid, BITS,
+                                        variant == "plain2")
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("variant", ["k2", "plain2"])
+def test_walks_past_2_16_words(cuda, variant):
+    """Two lanes of 70,000 words each, walked to their ends with fixed 2-bit
+    codes (K3 plain2; K2, 1,120 records of 1,000 positions a lane, with a
+    one-tree LUT of 2-bit entries): every symbol is the next two bits of
+    the lane, past word 2^16 too."""
+    rng = np.random.default_rng(72)
+    W, S = 70000, 2
+    words = rng.integers(0, 1 << 32, size=(W, S), dtype=np.uint64).astype(
+        np.uint32)
+    shifts = 30 - 2 * (np.arange(16 * W) % 16)
+    want = ((words[np.arange(16 * W) // 16].T >> shifts) & 3).astype(np.uint8)
+    plane = torch.from_numpy(words.view(np.int32)).to(cuda)
+    if variant == "plain2":
+        keep = torch.ones((S, 16 * W), dtype=torch.uint8, device=cuda)
+        got = bitpack.walk_masked(plane, keep, None, None, True).cpu()
+    else:
+        idx = np.arange(1 << BITS, dtype=np.int32)
+        luts = ((2 << 9) | (idx >> (BITS - 2)))[None, :]
+        totals = torch.full((S,), 16 * W, dtype=torch.int32, device=cuda)
+        got = bitpack.walk_uniform(
+            plane, totals, bitpack.walk_luts(luts, BITS, cuda, 1000),
+            torch.zeros(1000, dtype=torch.int32, device=cuda), 16 * W // 1000,
+            1000, 1000).cpu().reshape(S, -1)
+    np.testing.assert_array_equal(got.numpy(), want)

@@ -1,5 +1,5 @@
-"""phyngsc_tpu_torch imports without jax, and never drops to the CPU on its
-own: device="cuda" without a card raises, and a wrapper given a tensor that
+"""phyngsc_tpu_torch imports neither jax nor phyngsc_tpu, and never drops to
+the CPU on its own: device="cuda" without a card raises, and a wrapper given a tensor that
 is neither on the CPU nor on a card raises instead of taking its plain
 version."""
 
@@ -18,6 +18,7 @@ def test_port_imports_without_jax():
     code = (
         "import sys, pkgutil, importlib\n"
         "sys.modules['jax'] = None\n"
+        "sys.modules['phyngsc_tpu'] = None\n"
         "import phyngsc_tpu_torch as pkg\n"
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, "
         "'phyngsc_tpu_torch.')]\n"
@@ -31,6 +32,7 @@ def test_port_imports_without_jax():
         "except SystemExit as e:\n"
         "    assert e.code == 0, e.code\n"
         "assert sys.modules['jax'] is None\n"
+        "assert sys.modules['phyngsc_tpu'] is None\n"
         "print(len(names))\n"
     )
     env = dict(os.environ, PYTHONPATH=ROOT)
@@ -38,7 +40,7 @@ def test_port_imports_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert "compress" in res.stdout  # python -m phyngsc_tpu_torch --help
-    assert int(res.stdout.strip().splitlines()[-1]) >= 14  # every module
+    assert int(res.stdout.strip().splitlines()[-1]) >= 28  # every module
 
 
 def test_cuda_device_raises_without_card():
@@ -47,7 +49,7 @@ def test_cuda_device_raises_without_card():
     from phyngsc_tpu_torch.device import resolve
     from phyngsc_tpu_torch.pipeline.compress import compress_bytes
     from phyngsc_tpu_torch.pipeline.decompress import decompress_bytes
-    from phyngsc_tpu.utils.fastq import synthesize_fastq
+    from phyngsc_tpu_torch.utils.fastq import synthesize_fastq
 
     with pytest.raises(RuntimeError, match="cuda"):
         resolve("cuda")
@@ -73,14 +75,14 @@ def test_wrappers_raise_off_the_cpu():
     plane = torch.zeros((256, 128), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         bitpack.walk_uniform(plane, sub.int(),
-                             torch.zeros((1, 4096), dtype=torch.int32,
-                                         device="meta"),
+                             bitpack.walk_luts(np.zeros((1, 4096), np.int32),
+                                               12, "meta"),
                              torch.zeros(4, dtype=torch.int32, device="meta"),
-                             12, 2, 4, 4)
+                             2, 4, 4)
     with pytest.raises(ValueError, match="CUDA"):
         bitpack.walk_masked(plane, torch.zeros((2, 8), dtype=torch.bool,
                                                device="meta"),
-                            None, None, 12, True)
+                            None, None, True)
     with pytest.raises(ValueError, match="CUDA"):
         lookup.fused_lookup(sym, torch.zeros((8, 64), dtype=torch.int32,
                                              device="meta"))

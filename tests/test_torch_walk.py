@@ -269,3 +269,68 @@ def test_walk_reads_past_the_end_as_zero():
     out = bitpack.walk_masked_plain(plane, keep, None, None, 12, True)
     assert out[0].tolist()[:4] == [3, 3, 3, 3]
     assert int(out[0, 32:].max()) == 0 and int(out[1].max()) == 0
+
+
+def _two_level_trees():
+    """Four 12-bit LUTs: codes up to 12 bits (longer than every k below 12),
+    a zero-bit singleton tree, a tree of only 12-bit codes (each of its
+    8-bit prefixes escapes) and an all-escape tree of random int32 entries,
+    a third of them too wide for 15 bits (they send the kernel to the full
+    LUT)."""
+    from phyngsc_tpu_torch.ops import huffman
+
+    rng = np.random.default_rng(21)
+    freqs = np.zeros((3, 256), np.int64)
+    freqs[0] = rng.zipf(1.3, size=256) * (rng.random(256) < 0.4)
+    freqs[1, 65] = 1000
+    freqs[2, :] = 1  # 256 equal symbols: every code is 8 bits ...
+    lens = huffman.build_code_lengths_batch(freqs, BITS)
+    lens[2, :16] = 12  # ... and 16 of them 12 bits (a Kraft-deficient table)
+    sing = np.array([-1, 65, -1], np.int32)
+    sym, ln = huffman.decode_lut_batch(lens, BITS, sing)
+    luts = (ln.astype(np.int32) << 9) | sym.astype(np.int32)
+    garbage = rng.integers(0, 3 << 15, size=(1, 1 << BITS)).astype(np.int32)
+    return np.concatenate([luts, garbage])
+
+
+def _escaped_prefixes(luts, k):
+    """Independent count of the prefixes whose entries are not one value
+    below 2^15."""
+    blocks = luts.reshape(luts.shape[0], 1 << k, -1)
+    same = (blocks == blocks[..., :1]).all(-1) & (blocks[..., 0] < 0x8000)
+    return int((~same).sum())
+
+
+@pytest.mark.parametrize("k", [8, 9, 10, 11, 12])
+def test_two_level_tables_give_the_full_lut(k):
+    """bitpack.two_level_luts at the budget of exactly k primary bits,
+    looked up as the kernels do (two_level_entry): every 12-bit window of
+    every tree gives the full LUT's entry, whatever bits follow it."""
+    luts = _two_level_trees()
+    n_trees = luts.shape[0]
+    size = (n_trees << k) + (_escaped_prefixes(luts, k) << (BITS - k))
+    table, got_k, n_primary = bitpack.two_level_luts(luts, BITS, 2 * size)
+    assert (got_k, n_primary) == (k, n_trees << k)
+    assert table.dtype == np.uint16 and table.size % 8 == 0
+    assert table.size - size < 8
+    tree = torch.arange(n_trees)[:, None].expand(n_trees, 1 << BITS)
+    full = torch.from_numpy(luts).long()
+    for tail in (0, 0xFFFFF, 0x5A5A5):
+        win = (torch.arange(1 << BITS)[None, :] << (32 - BITS)) | tail
+        got = bitpack.two_level_entry(torch.from_numpy(table.astype(np.int64)),
+                                      got_k, n_primary, BITS, full, tree,
+                                      win.expand(n_trees, -1))
+        assert torch.equal(got, full)
+    if k < BITS:  # the all-escape tree escapes at every prefix
+        primary = table[:n_primary].reshape(n_trees, 1 << k)
+        assert (primary[3] & 0x8000).all()
+        assert not (primary[1] & 0x8000).any()  # the singleton never does
+
+
+def test_two_level_tables_refuse_what_cannot_fit():
+    luts = np.zeros((300000, 1 << 4), np.int32)
+    with pytest.raises(ValueError, match="shared memory"):
+        bitpack.two_level_luts(luts, 4, 232448)
+    wl = bitpack.walk_luts(_two_level_trees(), BITS, "cpu")
+    assert wl.n_trees == 4 and wl.lut_bits == BITS and wl.k == BITS
+    assert wl.packed.dtype == torch.int16 and wl.full.dtype == torch.int32
