@@ -10,10 +10,12 @@ Phases (any failure exits non-zero):
      in its plain2, Huffman and per-position-tree quality variants, K4 code
      lookup, K5 densify) against its plain PyTorch version on the card, on
      the inputs the pipeline gives it for one default 8 MiB sub-block (36 bp,
-     100 bp variable-length and 1000 bp reads, and K5 and K3 on lanes past
-     2^16 words, K3 there against the sub-block's own quality symbols, since
-     the plain walk would take minutes; the walks on the word plane K5
-     builds, with the two-level shared-memory tables the decode builds);
+     100 bp variable-length and 1000 bp reads, K5 and K3 on lanes past
+     2^16 words, and K2 and K3 on 65,532 bp reads whose 128 quality trees
+     leave some prefixes no room in shared memory, the last three against
+     the sub-block's own quality symbols, since the plain walk would take
+     minutes; the walks on the word plane K5 builds, with the two-level
+     shared-memory tables the decode builds);
      results must be exactly equal; times are CUDA-event medians. Beside
      each case: library_ms, one PyTorch call computing the same function
      (torch.bincount for K1, advanced indexing for K4, torch.gather for K5,
@@ -24,8 +26,9 @@ Phases (any failure exits non-zero):
   3. the main path: compress_bytes -> decompress_bytes with device="cuda" on
      --mb MB of synthetic ERR005195 36 bp reads, an SRR-style 76 bp corpus
      whose DNA stream is Huffman-coded, variable-length 100 bp reads,
-     1000 bp reads, SOLiD colour-space reads and variable 5.4 kbp reads whose
-     lanes hold more than 2^16 words, each byte-identical, with
+     1000 bp reads, SOLiD colour-space reads, variable 5.4 kbp reads whose
+     lanes hold more than 2^16 words and 65,532 bp reads, each
+     byte-identical, with
      every kernel variant launched, K5 twice per decoded sub-block, and no
      plain version run on a CUDA tensor;
   4. the file entry points: compress_file -> decompress_file of the
@@ -188,6 +191,23 @@ def long_lane_corpus(n: int, seed: int) -> bytes:
         for i, m in enumerate(lens))
 
 
+def long_read_corpus(n: int, seed: int) -> bytes:
+    """n reads of 65,532 bp, near the container's longest, with skewed
+    qualities (Zipf) that drift along the read: adaptive merging keeps 128
+    quality trees, too many for every escaped prefix to get a secondary
+    block in the shared memory left beside 65,532 tree ids."""
+    rng = np.random.default_rng(seed)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    L = 65532
+    drift = np.arange(L) * 30 // L
+    return b"".join(
+        b"@lr.%d\n%s\n+\n%s\n" % (
+            i, acgt[rng.integers(0, 4, size=L)].tobytes(),
+            (33 + np.minimum(rng.zipf(1.5, size=L) - 1 + drift, 60)).astype(
+                np.uint8).tobytes())
+        for i in range(n))
+
+
 def corpus_of(mb: float, build) -> bytes:
     """build(n) scaled to about mb MB."""
     per_rec = len(build(1000)) / 1000
@@ -313,6 +333,22 @@ def phase_device_times(cases: dict) -> None:
                   flush=True)
 
 
+def full_lut_prefixes(wl) -> int:
+    """Primary prefixes of a WalkLuts whose secondary block is all escapes,
+    so that every lookup under them reads the full LUT in global memory."""
+    if wl is None or wl.k == 0:
+        return 0
+    table = wl.packed.long() & 0xFFFF
+    primary = table[:wl.n_primary]
+    ids = primary[primary >= bitpack.ESCAPE] - bitpack.ESCAPE
+    if ids.numel() == 0:
+        return 0
+    d = wl.lut_bits - wl.k
+    blocks = table[wl.n_primary:wl.n_primary + ((int(ids.max()) + 1) << d)]
+    flagged = (blocks >= bitpack.ESCAPE).reshape(-1, 1 << d).all(dim=1)
+    return int(flagged[ids].sum())
+
+
 def walk_work(words: int, lanes: int, tables, slot_bytes: int,
               steps: torch.Tensor) -> tuple:
     """(bound() of a walk, its chain floor): the lanes' words, their totals,
@@ -343,7 +379,9 @@ def phase_kernels(dev) -> dict:
             lambda: torch.bincount(flat, minlength=L * A + 1)[:L * A].view(
                 L, A)))
 
-    def k2(name, f):
+    def k2(name, f, against_input=False, reps=20):
+        """against_input: hold the walk against the sub-block's own quality
+        symbols (lanes too long for the plain walk's Python loop)."""
         p, G = f.p, f.G
         S = p.q_sub.shape[0]
         plane = f.plane("q")
@@ -353,16 +391,23 @@ def phase_kernels(dev) -> dict:
                                        p.q_tables.n_trees, p.L).to(torch.int32)
         work, chain = walk_work(int(p.q_sub.sum()), S, luts,
                                 S * G * p.L + 4 * p.Lt, totals)
+        extra = {**chain, "k": luts.k, "n_trees": luts.n_trees,
+                 "full_lut_prefixes": full_lut_prefixes(luts)}
+        plain_fn, plain_reps = (
+            lambda: bitpack.walk_uniform_plain(plane, totals, luts.full, tid,
+                                               bits, G, p.Lt, p.L)), 3
+        if against_input:
+            truth = torch.where(quality.valid_mask(f.lens, p.L), f.a.qual_t,
+                                0)
+            plain_fn, plain_reps = (lambda: truth), 0
+            extra["reference"] = "the sub-block's quality symbols"
         cases["k2_walk_uniform"].append(compare(
             "k2_walk_uniform", name,
             lambda: kernels.walk_uniform(plane, totals, luts, tid, G, p.Lt,
                                          p.L),
-            lambda: bitpack.walk_uniform_plain(plane, totals, luts.full, tid,
-                                               bits, G, p.Lt, p.L),
-            20, 3, work, extra={**chain, "k": luts.k,
-                                "n_trees": luts.n_trees}))
+            plain_fn, reps, plain_reps, work, extra=extra))
 
-    def k3(name, f, variant, against_input=False):
+    def k3(name, f, variant, against_input=False, reps=20):
         """variant: plain2 / huffman (DNA, after the quality decode) or
         quality (variable-length quality, per-position trees); against_input:
         hold the quality walk against the sub-block's own symbols (lanes too
@@ -399,7 +444,8 @@ def phase_kernels(dev) -> dict:
         work, chain = walk_work(int(sub.sum()), S, luts, 2 * keep.numel(),
                                 steps)
         extra = {**chain, "k": luts and luts.k,
-                 "n_trees": luts and luts.n_trees}
+                 "n_trees": luts and luts.n_trees,
+                 "full_lut_prefixes": full_lut_prefixes(luts)}
         if against_input:
             truth = torch.where(valid, f.a.qual_t, 0).reshape(S, -1)
             plain_fn, plain_reps = (lambda: truth), 0
@@ -412,7 +458,7 @@ def phase_kernels(dev) -> dict:
         cases["k3_walk_masked"].append(compare(
             "k3_walk_masked", name,
             lambda: kernels.walk_masked(plane, tot, keep, luts, tid, plain2),
-            plain_fn, 20, plain_reps, work, extra=extra))
+            plain_fn, reps, plain_reps, work, extra=extra))
 
     def k5(name, f):
         for which in ("q", "d"):
@@ -499,10 +545,18 @@ def phase_kernels(dev) -> dict:
             f"long-lane sub-block: G = {lanes.G}, longest lane {lane} words")
     k5("k5 long lanes", lanes)
     k3("k3 quality long lanes", lanes, "quality", against_input=True)
+
+    reads = FirstSubblock(long_read_corpus(16, seed=11), dev)
+    reads.describe("65,532 bp reads")
+    k2("k2 quality walk L=65532", reads, against_input=True, reps=3)
+    k3("k3 quality L=65532", reads, "quality", against_input=True, reps=3)
     walks = cases["k2_walk_uniform"] + cases["k3_walk_masked"]
     require(any(c["k"] is not None and c["k"] < bits for c in walks)
             and any(c["k"] == bits for c in walks),
             "the walk cases did not take both whole and two-level tables")
+    last = cases["k2_walk_uniform"][-1:] + cases["k3_walk_masked"][-1:]
+    require(all(c["full_lut_prefixes"] > 0 for c in last),
+            "the 65,532 bp walks sent no prefix to the full LUT")
     return cases
 
 
@@ -560,6 +614,7 @@ def phase_round_trip(dev, err: bytes) -> dict:
         ("SOLiD colour space 50", corpus_of(16, lambda n: solid_corpus(n, 9))),
         ("long lanes (G = 64, reads of 5.4 kbp)",
          corpus_of(16, lambda n: long_lane_corpus(n, 10))),
+        ("65,532 bp reads (128 trees)", long_read_corpus(16, seed=12)),
     ]
     kernels.reset_counts()
     for what, data in corpora:

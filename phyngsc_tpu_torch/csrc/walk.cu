@@ -31,7 +31,11 @@
 //   the few primary entries whose codes are longer than k a secondary block
 //   of 2^(lut_bits - k) entries, a second shared-memory load. An entry that
 //   does not fit 15 bits (none in a table built from code lengths) is
-//   flagged and read from the full int32 LUT in global memory;
+//   flagged and read from the full int32 LUT in global memory, as are the
+//   prefixes that find no room for a block of their own when many trees
+//   share a block with many tree ids (they point at one block of flags).
+//   Where not even the primaries fit (k = 0, tens of thousands of trees),
+//   the kOnChip = false instantiations read every entry from the full LUT;
 // - the tree ids are staged in shared memory too (clamped, uint16), and the
 //   next step's id is loaded while the current step's entry is in flight;
 // - each cursor (Cursor below) keeps its next bits in a 64-bit register and
@@ -57,7 +61,7 @@
 
 namespace {
 
-constexpr int kMaxThreads = 128;
+constexpr int kThreads = 64;  // threads per block, one lane each
 constexpr uint32_t kEscape = 0x8000u;
 constexpr int kRing = 32;  // plane words in each lane's ring (a power of 2)
 
@@ -75,7 +79,7 @@ __device__ uint32_t lds16(uint32_t a) {
 // which hold no registers. The caller waits and synchronises.
 __device__ void stage_tables(uint32_t dst, const uint16_t* src, int n) {
   const uint4* src16 = reinterpret_cast<const uint4*>(src);
-  for (int i = threadIdx.x; i < n / 8; i += blockDim.x)
+  for (int i = threadIdx.x; i < n / 8; i += kThreads)
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
                      dst + 16 * i),
                  "l"(src16 + i)
@@ -90,16 +94,16 @@ __device__ void stage_tables(uint32_t dst, const uint16_t* src, int n) {
 __device__ void stage_ids(uint16_t* ids, const int32_t* tree_of_pos, int n,
                           int L, int n_trees) {
   constexpr int kBatch = 8;  // loads in flight per thread
-  for (int i0 = threadIdx.x; i0 < n; i0 += kBatch * blockDim.x) {
+  for (int i0 = threadIdx.x; i0 < n; i0 += kBatch * kThreads) {
     int32_t v[kBatch];
 #pragma unroll
     for (int j = 0; j < kBatch; ++j) {
-      const int i = i0 + j * blockDim.x;
+      const int i = i0 + j * kThreads;
       v[j] = i < n ? __ldg(tree_of_pos + (i < L ? i : (i - L) % L)) : 0;
     }
 #pragma unroll
     for (int j = 0; j < kBatch; ++j) {
-      const int i = i0 + j * blockDim.x;
+      const int i = i0 + j * kThreads;
       if (i < n)
         ids[i] = static_cast<uint16_t>(min(max(v[j], 0), n_trees - 1));
     }
@@ -119,8 +123,13 @@ struct Tables {
 
   // the (clamped) tree of position p
   __device__ int tree(int p) const { return lds16(ids + 2 * p); }
-  // the full LUT's entry of the tree for the window's top lut_bits
+  // the full LUT's entry of the tree for the window's top lut_bits: from
+  // the staged tables, or straight from the full LUT when !kOnChip (k = 0)
+  template <bool kOnChip>
   __device__ int32_t entry(int tree, uint32_t win) const {
+    if constexpr (!kOnChip)
+      return __ldg(full + (static_cast<int64_t>(tree) << lut_bits) +
+                   (win >> (32 - lut_bits)));
     uint32_t e = lds16(tab + 2 * ((tree << k) + (win >> (32 - k))));
     if (e & kEscape) {  // a code longer than k: its secondary block
       const uint32_t i = win >> (32 - lut_bits);
@@ -136,13 +145,11 @@ struct Tables {
 // The calling thread's slots of the block's slot-major lane area (laid out
 // below, ring_offset): slot j at at + j * stride.
 struct Slots {
-  uint32_t at;      // slot 0 of this thread
-  uint32_t stride;  // bytes from one slot to the next (4 * blockDim)
-  __device__ uint32_t operator()(int j) const { return at + j * stride; }
+  uint32_t at;  // slot 0 of this thread; slot j 4 * kThreads bytes further
+  __device__ uint32_t operator()(int j) const { return at + j * 4 * kThreads; }
 };
 __device__ Slots lane_slots(uint32_t base, int first) {
-  return Slots{base + 4 * (first * blockDim.x + threadIdx.x),
-               4 * blockDim.x};
+  return Slots{base + 4 * (first * kThreads + threadIdx.x)};
 }
 
 // A lane's bit cursor over its column of the plane, with no branch on its
@@ -229,7 +236,7 @@ struct Cursor {
 // multiple of 8), the tree ids (n_ids uint16, padded to a multiple of 8),
 // then kLaneWords words per thread: its ring of kRing plane words and its 4
 // words of staged output bytes, slot-major (slot j of thread t at word
-// j * blockDim + t), so that a warp's threads touching one slot each hit
+// j * kThreads + t), so that a warp's threads touching one slot each hit
 // 32 banks.
 constexpr int kLaneWords = kRing + 4;
 constexpr int kLaneBytes = 4 * kLaneWords;
@@ -310,7 +317,8 @@ __device__ uint32_t spread2(uint32_t x) {
 
 // K2: step t of lane s decodes position p = t % Lt of record s*G + t / Lt
 // with tree tree_of_pos[p]; the lane stops after totals[s] steps.
-__global__ void __launch_bounds__(kMaxThreads)
+template <bool kOnChip>
+__global__ void __launch_bounds__(kThreads)
     walk_uniform_kernel(const uint32_t* __restrict__ plane, int Wmax, int Sp,
                         const int32_t* __restrict__ totals,
                         const uint16_t* __restrict__ packed, int n_packed,
@@ -319,7 +327,7 @@ __global__ void __launch_bounds__(kMaxThreads)
                         const int32_t* __restrict__ tree_of_pos, int S, int G,
                         int Lt, int L, uint8_t* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int s = blockIdx.x * blockDim.x + threadIdx.x;
+  const int s = blockIdx.x * kThreads + threadIdx.x;
   const int total = s < S ? min(totals[s], G * Lt) : 0;
   if (!__syncthreads_or(total > 0)) return;  // a block of dead lanes
   const Tables tb = stage(smem, packed, n_packed, k, n_primary, full, n_trees,
@@ -340,7 +348,7 @@ __global__ void __launch_bounds__(kMaxThreads)
   for (int t = 0; t < total; ++t) {
     const int pn = p + 1 == Lt ? 0 : p + 1;
     const int next = tb.tree(pn);  // off the chain
-    const int32_t e = tb.entry(tree, c.window());
+    const int32_t e = tb.entry<kOnChip>(tree, c.window());
     const int q = row + p;
     if (q >> 4 != chunk) {
       ch.flush(out, origin + 16 * static_cast<int64_t>(chunk), lo, hi);
@@ -399,7 +407,8 @@ __device__ uint32_t lowest_bits(uint32_t m, int r) {
 // consumed totals[s] symbols (the number of kept slots of the lane). The
 // variants are separate instantiations: kPlain2 (fixed 2-bit codes, no
 // table), kOneTree (Huffman DNA, L = 1) and kPerPosition (variable-length
-// quality, tree tree_of_pos[t % L]).
+// quality, tree tree_of_pos[t % L]), each with its tables on chip or, for
+// kPerPosition, not (kOnChip).
 enum class Variant { kPlain2, kOneTree, kPerPosition };
 
 // tree ids a K3 block stages: one per position and the first 15 again
@@ -410,8 +419,8 @@ __host__ __device__ constexpr int masked_ids(Variant v, int L) {
 
 constexpr int kKeepAhead = 4;  // 16-slot keep loads in flight per lane
 
-template <Variant kV>
-__global__ void __launch_bounds__(kMaxThreads)
+template <Variant kV, bool kOnChip>
+__global__ void __launch_bounds__(kThreads)
     walk_masked_kernel(const uint32_t* __restrict__ plane, int Wmax, int Sp,
                        const int32_t* __restrict__ totals,
                        const uint8_t* __restrict__ keep,
@@ -421,7 +430,7 @@ __global__ void __launch_bounds__(kMaxThreads)
                        const int32_t* __restrict__ tree_of_pos, int S, int T,
                        int L, uint8_t* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int s = blockIdx.x * blockDim.x + threadIdx.x;
+  const int s = blockIdx.x * kThreads + threadIdx.x;
   const int total = s < S ? totals[s] : 0;
   const int n_ids = masked_ids(kV, L);
   Tables tb{};
@@ -496,7 +505,7 @@ __global__ void __launch_bounds__(kMaxThreads)
             int tn = tj;
             if constexpr (kV == Variant::kPerPosition)
               if (m) tn = tb.tree(pg + jn);  // off the chain
-            const int32_t e = tb.entry(tj, c.window());
+            const int32_t e = tb.entry<kOnChip>(tj, c.window());
             ch.put(j, static_cast<uint32_t>(e));
             c.advance(e >> 9);
             j = jn;
@@ -515,8 +524,8 @@ __global__ void __launch_bounds__(kMaxThreads)
   }
 }
 
-unsigned blocks_for(int S, int threads) {
-  return static_cast<unsigned>((S + threads - 1) / threads);
+unsigned blocks_for(int S) {
+  return static_cast<unsigned>((S + kThreads - 1) / kThreads);
 }
 
 template <typename Kernel>
@@ -530,21 +539,23 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 
 // plane (Wmax, Sp) uint32 with S <= Sp; packed (n_packed,) uint16 two-level
 // tables (n_packed a multiple of 8, 16-byte aligned, n_primary = n_trees <<
-// k of them primaries); full (n_trees, 2^lut_bits) int32; out (S*G, L)
-// uint8 must be zeroed and 16-byte aligned. Returns cudaGetLastError().
+// k of them primaries), or none (n_packed 0, k 0: every entry from full);
+// full (n_trees, 2^lut_bits) int32; out (S*G, L) uint8 must be zeroed and
+// 16-byte aligned. Returns cudaGetLastError().
 extern "C" int phyngsc_walk_uniform(const void* plane, int Wmax, int Sp,
                                     const void* totals, const void* packed,
                                     int n_packed, int k, int n_primary,
                                     const void* full, int n_trees,
                                     int lut_bits, const void* tree_of_pos,
-                                    int S, int G, int Lt, int L, int threads,
-                                    void* out, void* stream) {
-  const size_t smem =
-      ring_offset(n_packed, Lt) + kLaneBytes * static_cast<size_t>(threads);
-  cudaError_t err = allow_smem(walk_uniform_kernel, smem);
+                                    int S, int G, int Lt, int L, void* out,
+                                    void* stream) {
+  const auto kernel = n_packed > 0 ? walk_uniform_kernel<true>
+                                   : walk_uniform_kernel<false>;
+  const size_t smem = ring_offset(n_packed, Lt) + kLaneBytes * kThreads;
+  cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  walk_uniform_kernel<<<blocks_for(S, threads), threads, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<blocks_for(S), kThreads, smem,
+           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(plane), Wmax, Sp,
       static_cast<const int32_t*>(totals),
       static_cast<const uint16_t*>(packed), n_packed, k, n_primary,
@@ -556,29 +567,31 @@ extern "C" int phyngsc_walk_uniform(const void* plane, int Wmax, int Sp,
 
 // plane (Wmax, Sp) uint32 with S <= Sp; keep and out (S*T,) uint8, 16-byte
 // aligned, out zeroed; T is a multiple of L. The tables are as for
-// phyngsc_walk_uniform and may be null (n_packed 0) when plain2.
+// phyngsc_walk_uniform, and null (n_packed 0) when plain2.
 extern "C" int phyngsc_walk_masked(const void* plane, int Wmax, int Sp,
                                    const void* totals, const void* keep,
                                    const void* packed, int n_packed, int k,
                                    int n_primary, const void* full,
                                    int n_trees, int lut_bits,
                                    const void* tree_of_pos, int plain2, int S,
-                                   int T, int L, int threads, void* out,
-                                   void* stream) {
-  const Variant v = plain2 ? Variant::kPlain2
-                    : L == 1 ? Variant::kOneTree
-                             : Variant::kPerPosition;
-  const auto kernel = v == Variant::kPlain2
-                          ? walk_masked_kernel<Variant::kPlain2>
-                      : v == Variant::kOneTree
-                          ? walk_masked_kernel<Variant::kOneTree>
-                          : walk_masked_kernel<Variant::kPerPosition>;
+                                   int T, int L, void* out, void* stream) {
   if (plain2) n_packed = 0;
-  const size_t smem = ring_offset(n_packed, masked_ids(v, L)) +
-                      kLaneBytes * static_cast<size_t>(threads);
+  const bool on_chip = n_packed > 0;
+  // one tree with no tables on chip (never built so) walks as position 0
+  const Variant v = plain2                ? Variant::kPlain2
+                    : L == 1 && on_chip ? Variant::kOneTree
+                                          : Variant::kPerPosition;
+  const auto kernel =
+      v == Variant::kPlain2 ? walk_masked_kernel<Variant::kPlain2, true>
+      : v == Variant::kOneTree
+          ? walk_masked_kernel<Variant::kOneTree, true>
+          : on_chip ? walk_masked_kernel<Variant::kPerPosition, true>
+                    : walk_masked_kernel<Variant::kPerPosition, false>;
+  const size_t smem =
+      ring_offset(n_packed, masked_ids(v, L)) + kLaneBytes * kThreads;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<blocks_for(S, threads), threads, smem,
+  kernel<<<blocks_for(S), kThreads, smem,
            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(plane), Wmax, Sp,
       static_cast<const int32_t*>(totals), static_cast<const uint8_t*>(keep),

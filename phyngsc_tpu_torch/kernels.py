@@ -30,10 +30,8 @@ SRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
-#: threads per block of the walks (one lane each; at most WALK_MAX_THREADS,
-#: kMaxThreads in csrc/walk.cu)
+#: threads per block of the walks, one lane each (kThreads in csrc/walk.cu)
 WALK_THREADS = 64
-WALK_MAX_THREADS = 128
 #: shared memory of each walk lane: its ring of 32 plane words and its 16
 #: staged output bytes (kLaneBytes in csrc/walk.cu)
 WALK_LANE_BYTES = 4 * 32 + 16
@@ -44,20 +42,24 @@ def masked_ids(L: int) -> int:
     csrc/walk.cu): L + 15 (slots of a 16-slot group read ids past L without
     a modulo), or 1 for the one-tree variant."""
     return 1 if L == 1 else L + 15
+
+
 #: dynamic shared memory that one block may hold on an H100 (227 KB)
 SMEM_BYTES = 232448
 
 
-def _walk_smem(n_tables: int, n_ids: int, threads: int) -> int:
+def _walk_smem(n_tables: int, n_ids: int) -> int:
     """Shared memory of a walk block (csrc/walk.cu ring_offset): the tables'
     uint16 entries, the tree ids padded to 8, a lane area per thread."""
-    return 2 * n_tables + 2 * (-(-n_ids // 8) * 8) + WALK_LANE_BYTES * threads
+    return (2 * n_tables + 2 * (-(-n_ids // 8) * 8)
+            + WALK_LANE_BYTES * WALK_THREADS)
 
 
 def table_budget(n_ids: int) -> int:
-    """Bytes left for a walk's tables beside n_ids tree ids and the rings of
-    the largest block."""
-    return SMEM_BYTES - _walk_smem(0, n_ids, WALK_MAX_THREADS)
+    """Bytes left for a walk's tables beside n_ids tree ids and the lanes'
+    areas."""
+    return SMEM_BYTES - _walk_smem(0, n_ids)
+
 
 LAUNCHES = {"k1_histogram": 0, "k2_walk_uniform": 0, "k3_walk_masked": 0,
             "k3_walk_masked/plain2": 0, "k3_walk_masked/huffman": 0,
@@ -74,9 +76,9 @@ _I64 = ctypes.c_int64
 _SIGNATURES = {
     "phyngsc_hist": [_P, _P, _I64, _I, _I, _P, _P],
     "phyngsc_walk_uniform": [_P, _I, _I, _P, _P, _I, _I, _I, _P, _I, _I, _P,
-                             _I, _I, _I, _I, _I, _P, _P],
+                             _I, _I, _I, _I, _P, _P],
     "phyngsc_walk_masked": [_P, _I, _I, _P, _P, _P, _I, _I, _I, _P, _I, _I,
-                            _P, _I, _I, _I, _I, _I, _P, _P],
+                            _P, _I, _I, _I, _I, _P, _P],
     "phyngsc_lookup": [_P, _P, _I64, _I, _I, _P, _P],
     "phyngsc_densify": [_P, _I64, _P, _P, _I, _I, _I, _P, _P],
 }
@@ -209,29 +211,25 @@ def _aligned16(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _tables(luts, n_ids: int, threads: int):
+def _tables(luts, n_ids: int):
     """(packed table, the ctypes arguments of a walk's WalkLuts
     (ops/bitpack.py): packed table, its length, k, n_primary, full LUTs,
-    n_trees, lut_bits). The caller holds the table until the launch."""
+    n_trees, lut_bits). k = 0 and no entries: the kernel reads the full
+    LUTs alone. The caller holds the table until the launch."""
     _require(luts.full, "luts", torch.int32)
     _require(luts.packed, "packed luts", torch.int16)
     n_trees, V = luts.full.shape
     n = luts.packed.shape[0]
     bits, k = luts.lut_bits, luts.k
-    if (not 1 <= k <= bits <= 16 or V != 1 << bits or n_trees < 1
-            or luts.n_primary != n_trees << k or n % 8 or n < luts.n_primary
-            or _walk_smem(n, n_ids, threads) > SMEM_BYTES):
+    if (not 0 <= k <= bits or not 1 <= bits <= 16 or V != 1 << bits
+            or n_trees < 1 or luts.n_primary != (n_trees << k if k else 0)
+            or n % 8 or n < luts.n_primary or (k == 0) != (n == 0)
+            or _walk_smem(n, n_ids) > SMEM_BYTES):
         raise ValueError(f"walk: bad tables k={k} lut_bits={bits} "
                          f"n_trees={n_trees} entries={n}")
     packed = _aligned16(luts.packed)
-    return packed, (packed.data_ptr(), n, k, luts.n_primary,
+    return packed, (packed.data_ptr() if n else None, n, k, luts.n_primary,
                     luts.full.data_ptr(), n_trees, bits)
-
-
-def _threads() -> int:
-    if not 1 <= WALK_THREADS <= WALK_MAX_THREADS:
-        raise ValueError(f"walk: {WALK_THREADS} threads per block")
-    return WALK_THREADS
 
 
 def walk_uniform(plane: torch.Tensor, totals: torch.Tensor, luts,
@@ -247,15 +245,14 @@ def walk_uniform(plane: torch.Tensor, totals: torch.Tensor, luts,
     _require(tree_of_pos, "tree_of_pos", torch.int32)
     if totals.ndim != 1 or tree_of_pos.shape[0] < Lt or Lt > L:
         raise ValueError("walk_uniform: bad shapes")
-    threads = _threads()
-    packed, tables = _tables(luts, Lt, threads)
+    packed, tables = _tables(luts, Lt)
     out = torch.zeros((S * G, L), dtype=torch.uint8, device=plane.device)
     if S == 0:
         return out
     rc = build().phyngsc_walk_uniform(
         plane.data_ptr(), plane.shape[0], plane.shape[1], totals.data_ptr(),
-        *tables, tree_of_pos.data_ptr(), S, G, Lt, L,
-        threads, out.data_ptr(), _stream())
+        *tables, tree_of_pos.data_ptr(), S, G, Lt, L, out.data_ptr(),
+        _stream())
     _check(rc, "k2_walk_uniform")
     _count(LAUNCHES, "k2_walk_uniform")
     return out
@@ -276,14 +273,13 @@ def walk_masked(plane: torch.Tensor, totals: torch.Tensor,
         raise ValueError("walk_masked: bad shapes")
     S, T = keep.shape
     _check_plane(plane, S)
-    threads = _threads()
     L, packed, tables = 1, None, (None, 0, 0, 0, None, 1, 2)
     if not plain2:
         _require(tree_of_pos, "tree_of_pos", torch.int32)
         L = tree_of_pos.shape[0]
         if tree_of_pos.ndim != 1 or L < 1 or T % L:
             raise ValueError("walk_masked: bad tree shapes")
-        packed, tables = _tables(luts, masked_ids(L), threads)
+        packed, tables = _tables(luts, masked_ids(L))
     keep = _aligned16(keep)
     out = torch.zeros((S, T), dtype=torch.uint8, device=plane.device)
     if S == 0:
@@ -292,7 +288,7 @@ def walk_masked(plane: torch.Tensor, totals: torch.Tensor,
         plane.data_ptr(), plane.shape[0], plane.shape[1], totals.data_ptr(),
         keep.data_ptr(), *tables,
         None if plain2 else tree_of_pos.data_ptr(), int(plain2), S, T, L,
-        threads, out.data_ptr(), _stream())
+        out.data_ptr(), _stream())
     _check(rc, "k3_walk_masked")
     variant = "plain2" if plain2 else "huffman" if L == 1 else "quality"
     _count(LAUNCHES, "k3_walk_masked", f"k3_walk_masked/{variant}")

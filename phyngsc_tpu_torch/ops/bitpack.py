@@ -9,9 +9,9 @@ as the (Wmax, Sp) lane-minor plane, word w of lane s at [w, s], and
 walk_uniform (K2) and walk_masked (K3) walk that plane (csrc/walk.cu); CPU
 tensors take the plain versions, the walks stepping all lanes in lockstep,
 one step per loop iteration. The walks take their LUTs as WalkLuts
-(walk_luts): the full int32 tables, which the plain versions read, and the
-16-bit two-level tables that the kernels stage in shared memory
-(two_level_luts), both built on the host from the host LUTs. Words travel
+(walk_luts): the full int32 tables, which the plain versions read, and, for
+CUDA tensors, the 16-bit two-level tables that the kernels stage in shared
+memory (two_level_luts), built on the host from the host LUTs. Words travel
 as int32 tensors holding the uint32 bits, and are widened to int64 for bit
 work.
 """
@@ -142,27 +142,37 @@ ESCAPE = 0x8000
 
 def two_level_luts(luts, lut_bits: int, budget: int):
     """The kernels' shared-memory form of (n_trees, 2^lut_bits) int32 LUTs
-    whose entries are (len << 9) | sym: for the largest k <= lut_bits whose
-    tables fit `budget` bytes, one uint16 array holding a (n_trees, 2^k)
-    primary table, then secondary blocks of 2^d entries, d = lut_bits - k.
-    Let i be a window's top lut_bits bits and j = i >> d its top k bits.
-    Where every entry of tree t under prefix j is the same value below
-    2^15, primary[t, j] is that value; else primary[t, j] = ESCAPE | b and
-    secondary block b holds the tree's entries i of that prefix, each the
-    full LUT's value, or ESCAPE where it does not fit 15 bits (no table
-    built from code lengths has one), for which the kernel reads the full
-    LUT. So the lookup equals the full LUT for every window and any int32
-    contents. Returns (table padded with zeros to a multiple of 8 entries,
-    k, n_primary = n_trees << k). Raises ValueError when not even k = 1
-    fits."""
+    whose entries are (len << 9) | sym: one uint16 array holding a
+    (n_trees, 2^k) primary table, then secondary blocks of 2^d entries,
+    d = lut_bits - k, in at most `budget` bytes. Let i be a window's top
+    lut_bits bits and j = i >> d its top k bits. Where every entry of tree t
+    under prefix j is the same value below 2^15, primary[t, j] is that
+    value; else primary[t, j] = ESCAPE | b, and secondary block b holds the
+    tree's entries i of that prefix, each the full LUT's value, or ESCAPE
+    where it does not fit 15 bits (no table built from code lengths has
+    one), for which the kernel reads the full LUT. So the lookup equals the
+    full LUT for every window and any int32 contents.
+
+    k is the largest whose primaries and blocks all fit. Where no k leaves
+    room for a block per escaped prefix, the escaped prefixes take blocks in
+    tree-major order while they fit, the rest point at one shared block of
+    ESCAPE entries, and k is the one that sends the fewest prefixes to the
+    full LUT (under a prefix code every prefix is about equally likely).
+    Where not even k = 1 fits, k = 0 and the table is empty: the kernels
+    then read every entry from the full LUT. Returns (table padded with
+    zeros to a multiple of 8 entries, which a budget that is a multiple of
+    16 bytes holds too, k, n_primary = n_trees << k, or 0 when k = 0)."""
     luts = np.asarray(luts, dtype=np.int32)
     n_trees, V = luts.shape
     if V != 1 << lut_bits or n_trees < 1:
         raise ValueError(f"LUTs of shape {luts.shape} for {lut_bits} bits")
+    room = budget // 2
     fits = luts.view(np.uint32) < ESCAPE  # in [0, 2^15)
     # direct[t, j]: the 2^d entries of tree t under prefix j are one value
     # that fits, first[t, j]; each step to a smaller k halves both
     direct, first = fits, luts
+    best = None  # (share of prefixes left to the full LUT, k, direct,
+    #              first, blocks of their own)
     for k in range(lut_bits, 0, -1):
         d = lut_bits - k
         if d:
@@ -171,20 +181,32 @@ def two_level_luts(luts, lut_bits: int, budget: int):
             direct = u[..., 0] & u[..., 1] & (v[..., 0] == v[..., 1])
             first = v[..., 0]
         n_esc = int(direct.size - np.count_nonzero(direct))
-        n = (n_trees << k) + (n_esc << d)
-        if 2 * n <= budget and n_esc < ESCAPE:
+        if (n_trees << k) + (n_esc << d) <= room and n_esc <= ESCAPE:
+            best = (0, k, direct, first, n_esc)
             break
-    else:
-        raise ValueError(f"{n_trees} LUTs of {lut_bits} bits do not fit "
-                         f"{budget} B of shared memory")
+        free = room - (n_trees << k) - (1 << d)  # beside the shared block
+        if free >= 0:
+            own = min(free >> d, ESCAPE - 1)
+            lost = (n_esc - own) / (n_trees << k)
+            if best is None or lost < best[0]:
+                best = (lost, k, direct, first, own)
+    if best is None:
+        return np.zeros(0, dtype=np.uint16), 0, 0
+    _, k, direct, first, own = best
+    d = lut_bits - k
+    escaped = ~direct
+    n_esc = int(np.count_nonzero(escaped))
+    n_blocks = own + (own < n_esc)  # the shared block last
+    n = (n_trees << k) + (n_blocks << d)
     table = np.zeros(-(-n // 8) * 8, dtype=np.uint16)
     primary = table[:n_trees << k].reshape(direct.shape)
     primary[...] = first
-    escaped = ~direct
-    primary[escaped] = ESCAPE + np.arange(n_esc)  # block ids, tree-major
-    blocks = luts.reshape(n_trees, 1 << k, 1 << d)[escaped]
-    table[n_trees << k:n] = np.where(
-        fits.reshape(n_trees, 1 << k, 1 << d)[escaped], blocks,
+    primary[escaped] = ESCAPE + np.minimum(np.arange(n_esc), own)
+    blocks = luts.reshape(n_trees, 1 << k, 1 << d)[escaped][:own]
+    sec = table[n_trees << k:n]
+    sec[...] = ESCAPE
+    sec[:own << d] = np.where(
+        fits.reshape(n_trees, 1 << k, 1 << d)[escaped][:own], blocks,
         ESCAPE).ravel()
     return table, k, n_trees << k
 
@@ -192,12 +214,14 @@ def two_level_luts(luts, lut_bits: int, budget: int):
 def two_level_entry(table: torch.Tensor, k: int, n_primary: int,
                     lut_bits: int, luts: torch.Tensor, tree: torch.Tensor,
                     win: torch.Tensor) -> torch.Tensor:
-    """The kernels' lookup (csrc/walk.cu Tables::entry) in plain torch: the
-    entry of tree `tree` for 32-bit windows `win` (int64 tensors of one
-    shape), from two_level_luts' table (int64 values) and, for flagged
-    entries, the full luts."""
-    d = lut_bits - k
+    """The kernels' lookup (csrc/walk.cu Tables) in plain torch: the entry
+    of tree `tree` for 32-bit windows `win` (int64 tensors of one shape),
+    from two_level_luts' table (int64 values) and, for flagged entries or
+    when k = 0, the full luts."""
     i = win >> (32 - lut_bits)
+    if k == 0:
+        return luts[tree, i]
+    d = lut_bits - k
     e = table[(tree << k) + (win >> (32 - k))]
     esc = (e & ESCAPE) != 0
     sec = table[torch.where(esc, n_primary + ((e & ~ESCAPE) << d)
@@ -212,10 +236,12 @@ class WalkLuts:
     """A sub-block's decode LUTs as the walks take them (see walk_luts)."""
 
     full: torch.Tensor    # (n_trees, 2^lut_bits) int32 (len << 9) | sym
-    packed: torch.Tensor  # two_level_luts' table, int16 holding uint16
-    k: int
-    n_primary: int
     lut_bits: int
+    #: two_level_luts' table as int16 holding uint16, its k and n_primary;
+    #: built for CUDA tensors only (the plain versions read full)
+    packed: torch.Tensor | None = None
+    k: int = 0
+    n_primary: int = 0
 
     @property
     def n_trees(self) -> int:
@@ -224,16 +250,17 @@ class WalkLuts:
 
 def walk_luts(luts, lut_bits: int, device, n_ids: int = 1) -> WalkLuts:
     """Host (n_trees, 2^lut_bits) int32 LUTs -> WalkLuts on `device`: the
-    full tables and their two-level form (two_level_luts) in the shared
-    memory that a walk block leaves beside n_ids tree ids (K2: Lt, K3:
-    kernels.masked_ids(L); kernels.table_budget), both built on the host and
-    uploaded, so that nothing waits on the device."""
+    full tables and, on a CUDA device, their two-level form (two_level_luts)
+    in the shared memory that a walk block leaves beside n_ids tree ids
+    (K2: Lt, K3: kernels.masked_ids(L); kernels.table_budget), built on the
+    host and uploaded, so that nothing waits on the device."""
     full = np.ascontiguousarray(luts, dtype=np.int32)
-    table, k, n_primary = two_level_luts(full, lut_bits,
-                                         kernels.table_budget(n_ids))
-    return WalkLuts(torch.from_numpy(full).to(device),
-                    torch.from_numpy(table.view(np.int16)).to(device),
-                    k, n_primary, lut_bits)
+    wl = WalkLuts(torch.from_numpy(full).to(device), lut_bits)
+    if wl.full.is_cuda:
+        table, wl.k, wl.n_primary = two_level_luts(
+            full, lut_bits, kernels.table_budget(n_ids))
+        wl.packed = torch.from_numpy(table.view(np.int16)).to(device)
+    return wl
 
 
 def _walk_plain(plane, luts, tree_step, consume, lut_bits, plain2):

@@ -4,10 +4,11 @@ and out-of-alphabet symbols (K1, K4), pad lanes, empty lanes, streams with
 no words and tables pointing past the words (K5), merged and singleton
 trees, dead lanes and cursors running past the plane's rows (K2, K3, on the
 plane K5 builds), per-position trees over variable lengths (K3), both
-branches of the walks' shared-memory tables (full tables and two-level
-tables with escapes) on corrupt streams, lanes whose slot ranges are not
-16-byte aligned, lanes past 2^16 words, and round trips of every input
-class. Skipped
+branches of the walks' tables (full tables, two-level tables with escapes,
+escaped prefixes left to the full LUT, and no tables in shared memory at
+all) on corrupt streams, lanes whose slot ranges are not 16-byte aligned,
+lanes past 2^16 words, reads of 65,532 positions over 256 trees, and round
+trips of every input class. Skipped
 without a CUDA device; on the card (which has no jax) run
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -299,23 +300,46 @@ def _walk_luts_case(variant, rng):
     return luts[:1] if variant == "huffman" else luts
 
 
+def _whole_size(luts, k):
+    """Entries of the two-level tables at k with a block per escaped
+    prefix."""
+    blocks = luts.reshape(luts.shape[0], 1 << k, -1)
+    same = (blocks == blocks[..., :1]).all(-1) & (blocks[..., 0] < 0x8000)
+    return (luts.shape[0] << k) + (int((~same).sum()) << (BITS - k))
+
+
+def _to_full_lut(wl):
+    """Primary prefixes of WalkLuts whose secondary block holds only
+    escapes."""
+    table = wl.packed.cpu().numpy().view(np.uint16).astype(np.int64)
+    primary = table[:wl.n_primary]
+    ids = primary[primary >= 0x8000] - 0x8000
+    if ids.size == 0:
+        return 0
+    d = BITS - wl.k
+    blocks = table[wl.n_primary:wl.n_primary + ((int(ids.max()) + 1) << d)]
+    return int((blocks.reshape(-1, 1 << d) >= 0x8000).all(1)[ids].sum())
+
+
 def _walk_luts(luts, branch, L, cuda):
-    """WalkLuts of k = 12 (the tables fit whole) or k = 8 (two-level tables
-    with escapes: the budget of exactly 8 primary bits)."""
-    budget = kernels.table_budget(kernels.masked_ids(L))
-    if branch != "fits":
-        blocks = luts.reshape(luts.shape[0], 1 << 8, -1)
-        same = (blocks == blocks[..., :1]).all(-1) & (blocks[..., 0] < 0x8000)
-        budget = 2 * ((luts.shape[0] << 8)
-                      + (int((~same).sum()) << (BITS - 8)))
+    """WalkLuts of k = 12 (the tables fit whole), k = 8 (two-level tables
+    with escapes: the budget of exactly 8 primary bits), some escaped
+    prefixes sent to the full LUT (8 entries short of the least whole
+    size), or k = 0 (no budget: no tables in shared memory)."""
+    budget = {"fits": kernels.table_budget(kernels.masked_ids(L)),
+              "two-level": 2 * _whole_size(luts, 8),
+              "shared": 2 * ((min(_whole_size(luts, k) for k in
+                                  range(1, BITS + 1)) - 8) & ~7),
+              "global": 0}[branch]
     table, k, n_primary = bitpack.two_level_luts(luts, BITS, budget)
-    return bitpack.WalkLuts(torch.from_numpy(luts).to(cuda),
+    return bitpack.WalkLuts(torch.from_numpy(luts).to(cuda), BITS,
                             torch.from_numpy(table.view(np.int16)).to(cuda),
-                            k, n_primary, BITS)
+                            k, n_primary)
 
 
 @pytest.mark.parametrize("G_,L", [(16, 36), (3, 5)])
-@pytest.mark.parametrize("branch", ["fits", "two-level"])
+@pytest.mark.parametrize("branch", ["fits", "two-level", "shared",
+                                    "global"])
 @pytest.mark.parametrize("variant", ["k2", "plain2", "huffman", "quality"])
 def test_walk_kernels_match_plain(cuda, variant, branch, G_, L):
     """K2 and each K3 variant against their plain versions on a corrupt
@@ -334,7 +358,10 @@ def test_walk_kernels_match_plain(cuda, variant, branch, G_, L):
     else:
         luts = _walk_luts_case(variant, rng)
         wl = _walk_luts(luts, branch, L, cuda)
-        assert wl.k == (BITS if branch == "fits" else 8)
+        if branch == "shared":
+            assert wl.k >= 1 and _to_full_lut(wl) > 0
+        else:
+            assert wl.k == {"fits": BITS, "two-level": 8, "global": 0}[branch]
         full = torch.from_numpy(luts)
     if variant == "k2":
         Lt = L - 1
@@ -392,3 +419,39 @@ def test_walks_past_2_16_words(cuda, variant):
             torch.zeros(1000, dtype=torch.int32, device=cuda), 16 * W // 1000,
             1000, 1000).cpu().reshape(S, -1)
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("walk", ["uniform", "masked"])
+def test_walks_at_long_L_with_256_trees(cuda, walk):
+    """130 reads of 65,532 skewed qualities (Zipf, drifting along the read),
+    one a lane, over 256 trees: the tables that a K2 or K3 block stages
+    beside 65,532 tree ids leave some escaped prefixes to the full LUT. The
+    card's decode equals the plain version's and what was encoded."""
+    R, L = 130, 65532
+    rng = np.random.default_rng(73)
+    drift = np.arange(L)[None, :] * 7 // L
+    qual = (33 + np.minimum(rng.zipf(1.5, size=(R, L)) - 1 + drift, 60)
+            ).astype(np.uint8)
+    lens = torch.full((R,), L, dtype=torch.int32)
+    q = torch.from_numpy(qual)
+    tables = quality.build_tables(quality.analyze(q, lens).numpy(),
+                                  CodecConfig())
+    assert tables.n_trees == 256
+    w, sub, total = quality.encode_device(
+        q, lens, torch.from_numpy(tables.codes.astype(np.int64)),
+        torch.from_numpy(tables.lens.astype(np.int64)), 1, qual.size + 64)
+    words = torch.from_numpy(
+        w[: int(total)].numpy().astype(np.uint32).view(np.int32))
+    luts = tables.luts(BITS)
+    n_ids = L if walk == "uniform" else kernels.masked_ids(L)
+    wl = bitpack.walk_luts(luts, BITS, cuda, n_ids)
+    assert wl.k >= 1 and _to_full_lut(wl) > 0
+    if walk == "uniform":
+        def decode(plane, ln):
+            return quality.decode_walk(plane, ln, luts, L, L, 1, BITS)
+    else:
+        def decode(plane, ln):
+            return quality.decode_walk_masked(plane, ln, luts, L, 1, BITS)
+    got = decode(_plane(words, sub, cuda), lens.to(cuda)).cpu()
+    np.testing.assert_array_equal(got.numpy(), qual)
+    assert torch.equal(got, decode(_plane(words, sub, "cpu"), lens))

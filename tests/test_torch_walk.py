@@ -15,6 +15,7 @@ from phyngsc_tpu.models import dna as jdna
 from phyngsc_tpu.models import quality as jquality
 from phyngsc_tpu.ops import bitpack as jbitpack
 from phyngsc_tpu_torch import convert
+from phyngsc_tpu_torch.config import CodecConfig as PortConfig
 from phyngsc_tpu_torch.models import dna, quality
 from phyngsc_tpu_torch.ops import bitpack
 
@@ -328,9 +329,101 @@ def test_two_level_tables_give_the_full_lut(k):
 
 
 def test_two_level_tables_refuse_what_cannot_fit():
+    """Tables too large for any primary in shared memory are not refused:
+    k = 0 and an empty table, so the kernels read the full LUT alone; and
+    the CPU's WalkLuts carry only the full LUT, which the plain walks
+    read."""
     luts = np.zeros((300000, 1 << 4), np.int32)
-    with pytest.raises(ValueError, match="shared memory"):
-        bitpack.two_level_luts(luts, 4, 232448)
+    assert bitpack.two_level_luts(luts, 4, 232448)[1:] == (0, 0)
+    assert bitpack.two_level_luts(luts, 4, 232448)[0].size == 0
     wl = bitpack.walk_luts(_two_level_trees(), BITS, "cpu")
-    assert wl.n_trees == 4 and wl.lut_bits == BITS and wl.k == BITS
-    assert wl.packed.dtype == torch.int16 and wl.full.dtype == torch.int32
+    assert wl.n_trees == 4 and wl.lut_bits == BITS
+    assert wl.packed is None and wl.full.dtype == torch.int32
+
+
+L_LONG = 65532  # the longest read length that is a multiple of 4
+
+
+def _long_read_case(R, seed):
+    """R reads of L_LONG skewed qualities (Zipf, drifting along the read)
+    and their 256 quality trees (positions grouped by quality.analyze),
+    codes of up to 10-11 bits."""
+    rng = np.random.default_rng(seed)
+    drift = np.arange(L_LONG)[None, :] * 7 // L_LONG
+    qual = (33 + np.minimum(rng.zipf(1.5, size=(R, L_LONG)) - 1 + drift,
+                            60)).astype(np.uint8)
+    lens = torch.full((R,), L_LONG, dtype=torch.int32)
+    q = torch.from_numpy(qual)
+    tables = quality.build_tables(quality.analyze(q, lens).numpy(),
+                                  PortConfig())
+    assert tables.n_trees == 256
+    return qual, lens, tables
+
+
+def _prefixes_to_full_lut(table, k, n_primary):
+    """Primary prefixes whose secondary block holds only escapes."""
+    primary = table[:n_primary].astype(np.int64)
+    ids = primary[primary >= 0x8000] - 0x8000
+    if ids.size == 0:
+        return 0
+    d = BITS - k
+    blocks = table[n_primary:n_primary + ((int(ids.max()) + 1) << d)]
+    return int((blocks.reshape(-1, 1 << d) >= 0x8000).all(1)[ids].sum())
+
+
+@pytest.mark.parametrize("case", ["256 trees at L=65532", "tight",
+                                  "no primary fits"])
+def test_two_level_tables_past_shared_memory(case):
+    """Where not every escaped prefix finds room for a secondary block (256
+    real quality trees beside the tree ids of a 65,532-position K3 block, or
+    a tight budget), the rest point at one block of escapes and read the
+    full LUT; where no primary fits, k = 0. The lookup equals the full LUT
+    for every window and the table stays inside its budget."""
+    from phyngsc_tpu_torch import kernels
+
+    if case == "256 trees at L=65532":
+        luts = _long_read_case(4, 7)[2].luts(BITS)
+        budget = kernels.table_budget(kernels.masked_ids(L_LONG))
+    else:
+        luts = _two_level_trees()
+        # the least any k needs is k = 5: 4 << 5 primaries, one block of 2^7
+        budget = (2 * ((4 << 8) + (4 << 4)) if case == "tight"
+                  else 2 * ((4 << 5) + (1 << 7)) - 16)
+    table, k, n_primary = bitpack.two_level_luts(luts, BITS, budget)
+    assert 2 * table.size <= budget
+    if case == "no primary fits":
+        assert (k, n_primary, table.size) == (0, 0, 0)
+    else:
+        assert k >= 1 and n_primary == luts.shape[0] << k
+        assert _escaped_prefixes(luts, k) > 1
+        assert _prefixes_to_full_lut(table, k, n_primary) > 0
+    n_trees = luts.shape[0]
+    tree = torch.arange(n_trees)[:, None].expand(n_trees, 1 << BITS)
+    full = torch.from_numpy(luts).long()
+    for tail in (0, 0xFFFFF, 0x5A5A5):
+        win = (torch.arange(1 << BITS)[None, :] << (32 - BITS)) | tail
+        got = bitpack.two_level_entry(torch.from_numpy(table.astype(np.int64)),
+                                      k, n_primary, BITS, full, tree,
+                                      win.expand(n_trees, -1))
+        assert torch.equal(got, full)
+
+
+@pytest.mark.parametrize("walk", ["uniform", "masked"])
+def test_quality_decode_at_long_L_with_256_trees(walk):
+    """A read of 65,532 qualities over 256 trees decodes on the CPU through
+    K2's and K3's plain versions to what was encoded (the tables the kernels
+    take are built for CUDA tensors alone)."""
+    qual, lens, tables = _long_read_case(1, 8)
+    w, sub, total = quality.encode_device(
+        torch.from_numpy(qual), lens,
+        torch.from_numpy(tables.codes.astype(np.int64)),
+        torch.from_numpy(tables.lens.astype(np.int64)), 1, qual.size + 64)
+    words = w[: int(total)].to(torch.int32)
+    plane = bitpack.dense_words(words, sub, int(sub.max()) + 1, 128)
+    if walk == "uniform":
+        got = quality.decode_walk(plane, lens, tables.luts(BITS), L_LONG,
+                                  L_LONG, 1, BITS)
+    else:
+        got = quality.decode_walk_masked(plane, lens, tables.luts(BITS),
+                                         L_LONG, 1, BITS)
+    np.testing.assert_array_equal(got.numpy(), qual)
