@@ -16,13 +16,16 @@ Phases (any failure exits non-zero):
      the sub-block's own quality symbols, since the plain walk would take
      minutes; the walks on the word plane K5 builds, with the two-level
      shared-memory tables the decode builds);
-     results must be exactly equal; times are CUDA-event medians. Beside
-     each case: library_ms, one PyTorch call computing the same function
-     (torch.bincount for K1, advanced indexing for K4, torch.gather for K5,
-     none for the walks), checked equal too, and bound_ms, the least time
-     the card could take (bytes read once and written once at 3.35 TB/s, or
-     the operations at 67 T/s, whichever is larger), with the walks' chain
-     floor (their longest lane's steps at one shared-memory load each);
+     results must be exactly equal; times are CUDA-event medians of one
+     call. Beside each case: library_ms, one PyTorch call computing the
+     same function (torch.bincount for K1, advanced indexing for K4,
+     torch.gather for K5, none for the walks), checked equal too and timed
+     in turns with the kernel (then the kernel alone, ms_alone, its calls
+     in a row as a case without a library call), and bound_ms, the least
+     time the card could take (bytes read once and written once at
+     3.35 TB/s, or the operations at 67 T/s, whichever is larger), with the
+     walks' chain floor (their longest lane's steps at one shared-memory
+     load each);
   3. the main path: compress_bytes -> decompress_bytes with device="cuda" on
      --mb MB of synthetic ERR005195 36 bp reads, an SRR-style 76 bp corpus
      whose DNA stream is Huffman-coded, variable-length 100 bp reads,
@@ -119,19 +122,23 @@ def require(cond: bool, what: str) -> None:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Median CUDA-event time of fn() over reps runs, after one warm-up."""
-    fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
+def cuda_ms(fns, reps: int) -> list:
+    """Median CUDA-event time of one call of each of fns over reps runs,
+    after one warm-up each; the fns take turns run by run, so a drift of
+    the host's speed during the timing falls on all of them alike."""
+    for fn in fns:
         fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    times = [[] for _ in fns]
+    for _ in range(reps):
+        for fn, t in zip(fns, times):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            t.append(start.elapsed_time(end))
+    return [statistics.median(t) for t in times]
 
 
 def device_ms(fn, reps: int, kernel_fn: str):
@@ -299,8 +306,9 @@ def compare(kernel: str, name: str, kernel_fn, plain_fn, reps: int,
     """kernel_fn (a launch of `kernel`) against plain_fn on the card: exact
     equality, then the CUDA-event median of one call of each, and of
     library_fn (one PyTorch call of the same function, also held equal)
-    where there is one. work: bound() of the case's inputs. The kernel's
-    own device time comes later (phase_device_times), from `_probe`."""
+    where there is one, the kernel and the library call timed in turns.
+    work: bound() of the case's inputs. The kernel's own device time comes
+    later (phase_device_times), from `_probe`."""
     got = kernel_fn()
     ref = plain_fn()
     torch.cuda.synchronize()
@@ -309,16 +317,21 @@ def compare(kernel: str, name: str, kernel_fn, plain_fn, reps: int,
     err = int((got.long() - ref.long()).abs().max()) if got.numel() else 0
     require(err == 0, f"{name}: kernel differs from its plain version "
             f"(max abs err {err})")
-    library_ms = None
+    library_ms, alone = None, {}
     if library_fn is not None:
         lib = library_fn()
         require(torch.equal(lib.long(), ref.long()),
                 f"{name}: the library call computes another function")
-        library_ms = cuda_ms(library_fn, reps)
+        ms, library_ms = cuda_ms([kernel_fn, library_fn], reps)
+        # and the kernel alone, its calls in a row, as a case without a
+        # library call is timed: comparable with such times of another tree
+        alone = {"ms_alone": cuda_ms([kernel_fn], reps)[0]}
+    else:
+        ms, = cuda_ms([kernel_fn], reps)
+    plain_ms = cuda_ms([plain_fn], plain_reps)[0] if plain_reps else None
     case = {"case": name, "shape": list(got.shape), "max_abs_err": err,
-            "ms": cuda_ms(kernel_fn, reps),
-            "plain_ms": cuda_ms(plain_fn, plain_reps) if plain_reps else None,
-            "library_ms": library_ms, **work, **(extra or {})}
+            "ms": ms, **alone, "plain_ms": plain_ms, "library_ms": library_ms,
+            **work, **(extra or {})}
     print(f"kernel check: {json.dumps(case)}", flush=True)
     case["_probe"] = (kernel_fn, reps, KERNEL_FN[kernel])
     return case
@@ -367,14 +380,15 @@ def phase_kernels(dev) -> dict:
     cases = {k: [] for k in KERNELS}
 
     def k1(name, sym, mask, A):
-        mask = mask.to(torch.uint8).contiguous()
+        """mask: the bool mask as the caller holds it (the kernel reads its
+        bytes in place)."""
         R, L = sym.shape
         ok = mask.bool() & (sym.long() < A)
         flat = torch.where(ok, torch.arange(L, device=dev) * A + sym.long(),
                            L * A).reshape(-1)
         cases["k1_histogram"].append(compare(
             "k1_histogram", name, lambda: kernels.histogram(sym, mask, A),
-            lambda: histogram.position_histogram_plain(sym, mask, A), 20, 5,
+            lambda: histogram.position_histogram_plain(sym, mask, A), 100, 5,
             bound(2 * R * L + 4 * L * A, R * L),
             lambda: torch.bincount(flat, minlength=L * A + 1)[:L * A].view(
                 L, A)))
@@ -461,10 +475,12 @@ def phase_kernels(dev) -> dict:
             plain_fn, reps, plain_reps, work, extra=extra))
 
     def k5(name, f):
+        """bitpack.dense_words timed as _decode_device calls it: the words
+        and the substream table as uploaded, the lane starts inside the
+        call."""
         for which in ("q", "d"):
             words, sub, Wmax, Sp = f.stream(which)
             start = bitpack.word_starts(sub)
-            sub32 = sub.to(torch.int32)
             S, n = sub.shape[0], words.shape[0]
             w = torch.arange(Wmax, device=dev)[:, None]
             src = start[None, :] + w
@@ -474,9 +490,9 @@ def phase_kernels(dev) -> dict:
             padded = torch.cat([words, words.new_zeros(1)])
             cases["k5_densify"].append(compare(
                 "k5_densify", f"{name} {which} plane ({Wmax}, {Sp})",
-                lambda: kernels.densify(words, start, sub32, Wmax, Sp),
+                lambda: bitpack.dense_words(words, sub, Wmax, Sp),
                 lambda: bitpack.dense_words_plain(words, sub, Wmax, Sp),
-                50, 10, bound(4 * int(sub.sum()) + 12 * S + 4 * Wmax * Sp),
+                200, 10, bound(4 * int(sub.sum()) + 4 * S + 4 * Wmax * Sp),
                 lambda: torch.gather(padded, 0, index.view(-1)).view(Wmax,
                                                                      Sp)))
 
@@ -489,15 +505,20 @@ def phase_kernels(dev) -> dict:
         sym64 = sym.long()
         cases["k4_lookup"].append(compare(
             "k4_lookup", name, lambda: kernels.lookup(sym, tab),
-            lambda: lookup.fused_lookup_plain(sym, tab), 20, 5,
+            lambda: lookup.fused_lookup_plain(sym, tab), 100, 5,
             bound(R * L + 4 * L * A + 4 * R * L),
             lambda: padded[pos, sym64]))
 
     err = FirstSubblock(synthesize_fastq(70000, read_len=36, seed=1), dev)
     err.describe("ERR005195 36 bp")
     a = err.a
+    # the padded planes (all Rp rows), then the R live rows as stage A
+    # passes them
     k1("k1 quality A=256", a.qual_t, quality.valid_mask(a.lens, a.L), 256)
     k1("k1 dna keep A=128", a.seq, a.keep, 128)
+    k1("k1 quality A=256 live rows", a.qual_t[:a.R],
+       quality.valid_mask(a.lens[:a.R], a.L), 256)
+    k1("k1 dna keep A=128 live rows", a.seq[:a.R], a.keep[:a.R], 128)
     k5("k5 36 bp", err)
     k2("k2 quality walk", err)
     require(err.p.d_plan.mode == dna.MODE_PLAIN,

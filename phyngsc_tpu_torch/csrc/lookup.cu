@@ -21,6 +21,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "kernels.h"
+
 namespace {
 
 constexpr int kThreads = 256;

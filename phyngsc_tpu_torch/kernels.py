@@ -1,11 +1,14 @@
 """Build, bind and launch the hand-written CUDA kernels (csrc/*.cu): K1
 histogram, K2/K3 walks, K4 lookup, K5 densify.
 
-The sources compile at first use with nvcc into one shared library with a
-plain C interface under build/kernels/ (named by a hash of the sources, so a
-stale build is never loaded) and bind through ctypes; what ptxas reports of
-each kernel (registers, shared memory, spills) is kept beside the library
-(build_log). Each launch goes on
+The sources compile at first use with nvcc into one shared library under
+build/kernels/ (named by a hash of the sources, the flags and the Python
+ABI, so a stale build is never loaded): the kernels' plain C launchers
+(csrc/kernels.h) and csrc/bind.cpp, which makes the library a CPython
+extension module whose functions take the launchers' arguments as ints and
+launch in one call. What ptxas reports of each kernel (registers, shared
+memory, spills) is kept beside the library (build_log). The wrappers reach
+the loaded module without a lock once it is built. Each launch goes on
 PyTorch's current stream, allocates nothing itself and is checked with
 cudaGetLastError; a failed launch raises. LAUNCHES counts the launches of
 each kernel; PLAIN_ON_CUDA counts calls of the plain PyTorch versions on CUDA
@@ -15,12 +18,14 @@ only for CPU tensors).
 
 from __future__ import annotations
 
-import ctypes
 import glob
 import hashlib
+import importlib.machinery
+import importlib.util
 import os
 import shutil
 import subprocess
+import sysconfig
 import threading
 
 import torch
@@ -69,19 +74,8 @@ PLAIN_ON_CUDA = {"k1_histogram": 0, "k2_walk_uniform": 0, "k3_walk_masked": 0,
 
 _lock = threading.Lock()
 _lib = None
-
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-_I64 = ctypes.c_int64
-_SIGNATURES = {
-    "phyngsc_hist": [_P, _P, _I64, _I, _I, _P, _P],
-    "phyngsc_walk_uniform": [_P, _I, _I, _P, _P, _I, _I, _I, _P, _I, _I, _P,
-                             _I, _I, _I, _I, _P, _P],
-    "phyngsc_walk_masked": [_P, _I, _I, _P, _P, _P, _I, _I, _I, _P, _I, _I,
-                            _P, _I, _I, _I, _I, _P, _P],
-    "phyngsc_lookup": [_P, _P, _I64, _I, _I, _P, _P],
-    "phyngsc_densify": [_P, _I64, _P, _P, _I, _I, _I, _P, _P],
-}
+#: the extension module's name (PyInit_phyngsc_kernels in csrc/bind.cpp)
+_MODULE = "phyngsc_kernels"
 
 
 def reset_counts() -> None:
@@ -113,17 +107,30 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def _sources() -> list:
+    return sorted(glob.glob(os.path.join(SRC_DIR, "*.cu"))
+                  + glob.glob(os.path.join(SRC_DIR, "*.cpp")))
+
+
 def library_path() -> str:
-    sources = sorted(glob.glob(os.path.join(SRC_DIR, "*.cu")))
     h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
-    for s in sources:
+    h.update(sysconfig.get_config_var("EXT_SUFFIX").encode())
+    for s in sorted(glob.glob(os.path.join(SRC_DIR, "*"))):
         with open(s, "rb") as f:
             h.update(f.read())
     return os.path.join(BUILD_DIR, f"libphyngsc_kernels_{h.hexdigest()[:12]}.so")
 
 
-def build() -> ctypes.CDLL:
-    """Compile (once per source hash) and load the kernel library."""
+def _python_include() -> str:
+    inc = sysconfig.get_paths()["include"]
+    if not os.path.exists(os.path.join(inc, "Python.h")):
+        raise RuntimeError(f"Python.h not found in {inc}: the kernels' "
+                           "binding cannot be built")
+    return inc
+
+
+def build():
+    """Compile (once per source hash) and load the kernels' module."""
     global _lib
     with _lock:
         if _lib is not None:
@@ -132,8 +139,8 @@ def build() -> ctypes.CDLL:
         if not os.path.exists(path):
             os.makedirs(BUILD_DIR, exist_ok=True)
             tmp = f"{path}.{os.getpid()}.tmp"
-            sources = sorted(glob.glob(os.path.join(SRC_DIR, "*.cu")))
-            res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources],
+            res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-I", _python_include(),
+                                  "-o", tmp, *_sources()],
                                  capture_output=True, text=True)
             if res.returncode != 0:
                 raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
@@ -141,11 +148,10 @@ def build() -> ctypes.CDLL:
             with open(f"{path}.log", "w") as f:
                 f.write(res.stdout + res.stderr)
             os.replace(tmp, path)
-        lib = ctypes.CDLL(path)
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+        loader = importlib.machinery.ExtensionFileLoader(_MODULE, path)
+        lib = importlib.util.module_from_spec(
+            importlib.util.spec_from_loader(_MODULE, loader))
+        loader.exec_module(lib)
         _lib = lib
         return lib
 
@@ -161,8 +167,18 @@ def build_log() -> str:
         return ""
 
 
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
+def _bound():
+    """The loaded module: after the first build a plain read, without
+    build()'s lock."""
+    lib = _lib
+    return lib if lib is not None else build()
+
+
+def _stream(t: torch.Tensor) -> int:
+    """The raw current CUDA stream of t's device (what
+    torch.cuda.current_stream(device).cuda_stream gives, without building a
+    Stream object per launch)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def _require(t: torch.Tensor, what: str, dtype: torch.dtype) -> None:
@@ -180,19 +196,24 @@ def _check(rc: int, name: str) -> None:
 
 
 def histogram(sym: torch.Tensor, mask: torch.Tensor, A: int) -> torch.Tensor:
-    """K1: (R, L) uint8 symbols, (R, L) uint8 mask -> (L, A) int32 counts of
-    masked symbols < A."""
+    """K1: (R, L) uint8 symbols, (R, L) bool or uint8 mask (a nonzero byte
+    counts; a bool mask is read in place) -> (L, A) int32 counts of the
+    masked symbols < A, 1 <= A <= 256, R * L < 2^31. The kernel zeroes the
+    counts itself, on the stream."""
+    if mask.dtype == torch.bool:
+        mask = mask.view(torch.uint8)
     _require(sym, "symbols", torch.uint8)
     _require(mask, "mask", torch.uint8)
     R, L = sym.shape
-    if mask.shape != sym.shape or A not in (128, 256) or L > 65535:
+    if mask.shape != sym.shape or not 1 <= A <= 256 or R * L >= 1 << 31:
         raise ValueError(f"histogram: bad shapes {tuple(sym.shape)} "
                          f"{tuple(mask.shape)} A={A}")
-    out = torch.zeros((L, A), dtype=torch.int32, device=sym.device)
+    out = torch.empty((L, A), dtype=torch.int32, device=sym.device)
     if R == 0 or L == 0:
-        return out
-    rc = build().phyngsc_hist(sym.data_ptr(), mask.data_ptr(), R, L, A,
-                              out.data_ptr(), _stream())
+        return out.zero_()
+    sym, mask = _aligned16(sym), _aligned16(mask)  # 16-byte loads
+    rc = _bound().hist(sym.data_ptr(), mask.data_ptr(), R, L, A,
+                               out.data_ptr(), _stream(out))
     _check(rc, "k1_histogram")
     _count(LAUNCHES, "k1_histogram")
     return out
@@ -212,7 +233,7 @@ def _aligned16(t: torch.Tensor) -> torch.Tensor:
 
 
 def _tables(luts, n_ids: int):
-    """(packed table, the ctypes arguments of a walk's WalkLuts
+    """(packed table, the launch arguments of a walk's WalkLuts
     (ops/bitpack.py): packed table, its length, k, n_primary, full LUTs,
     n_trees, lut_bits). k = 0 and no entries: the kernel reads the full
     LUTs alone. The caller holds the table until the launch."""
@@ -249,10 +270,10 @@ def walk_uniform(plane: torch.Tensor, totals: torch.Tensor, luts,
     out = torch.zeros((S * G, L), dtype=torch.uint8, device=plane.device)
     if S == 0:
         return out
-    rc = build().phyngsc_walk_uniform(
+    rc = _bound().walk_uniform(
         plane.data_ptr(), plane.shape[0], plane.shape[1], totals.data_ptr(),
         *tables, tree_of_pos.data_ptr(), S, G, Lt, L, out.data_ptr(),
-        _stream())
+        _stream(out))
     _check(rc, "k2_walk_uniform")
     _count(LAUNCHES, "k2_walk_uniform")
     return out
@@ -284,11 +305,11 @@ def walk_masked(plane: torch.Tensor, totals: torch.Tensor,
     out = torch.zeros((S, T), dtype=torch.uint8, device=plane.device)
     if S == 0:
         return out
-    rc = build().phyngsc_walk_masked(
+    rc = _bound().walk_masked(
         plane.data_ptr(), plane.shape[0], plane.shape[1], totals.data_ptr(),
         keep.data_ptr(), *tables,
         None if plain2 else tree_of_pos.data_ptr(), int(plain2), S, T, L,
-        out.data_ptr(), _stream())
+        out.data_ptr(), _stream(out))
     _check(rc, "k3_walk_masked")
     variant = "plain2" if plain2 else "huffman" if L == 1 else "quality"
     _count(LAUNCHES, "k3_walk_masked", f"k3_walk_masked/{variant}")
@@ -307,30 +328,32 @@ def lookup(sym: torch.Tensor, tab: torch.Tensor) -> torch.Tensor:
     out = torch.empty((R, L), dtype=torch.int32, device=sym.device)
     if R == 0 or L == 0:
         return out
-    rc = build().phyngsc_lookup(sym.data_ptr(), tab.data_ptr(), R, L,
-                                tab.shape[1], out.data_ptr(), _stream())
+    rc = _bound().lookup(sym.data_ptr(), tab.data_ptr(), R, L, tab.shape[1],
+                         out.data_ptr(), _stream(out))
     _check(rc, "k4_lookup")
     _count(LAUNCHES, "k4_lookup")
     return out
 
 
-def densify(words: torch.Tensor, word_start: torch.Tensor,
-            sub_n_words: torch.Tensor, Wmax: int, Sp: int) -> torch.Tensor:
-    """K5: (N,) int32 linear words (uint32 bits), (S,) int64 lane starts and
-    (S,) int32 lane word counts -> (Wmax, Sp) int32 plane, out[w, s] =
-    words[word_start[s] + w] for w < sub_n_words[s], else 0 (pad lanes
-    s >= S and reads past the words included)."""
+def densify(words: torch.Tensor, sub_n_words: torch.Tensor, Wmax: int,
+            Sp: int) -> torch.Tensor:
+    """K5: (N,) int32 linear words (uint32 bits) and the (S,) int32
+    substream table (lane word counts) -> (Wmax, Sp) int32 plane, out[w, s]
+    = words[start[s] + w] for w < sub_n_words[s], else 0 (pad lanes s >= S
+    and reads past the words included); start, the exclusive prefix sum of
+    the table, is computed by the kernel. Only the checks that keep the
+    launch inside its buffers run here: the kernel bounds every index."""
     _require(words, "words", torch.int32)
-    _require(word_start, "word_start", torch.int64)
     _require(sub_n_words, "sub_n_words", torch.int32)
-    S = sub_n_words.shape[0]
-    if (words.ndim != 1 or word_start.shape != (S,) or S > Sp
-            or not 1 <= Wmax < 1 << 31 or not 1 <= Sp < 1 << 31):
+    S = sub_n_words.numel()
+    if (words.ndim != 1 or sub_n_words.ndim != 1 or S > Sp
+            or sub_n_words.get_device() != words.get_device()
+            or not 0 < Wmax < 1 << 31 or not 0 < Sp < 1 << 31):
         raise ValueError(f"densify: bad shapes S={S} Wmax={Wmax} Sp={Sp}")
-    out = torch.empty((Wmax, Sp), dtype=torch.int32, device=words.device)
-    rc = build().phyngsc_densify(words.data_ptr(), words.shape[0],
-                                 word_start.data_ptr(), sub_n_words.data_ptr(),
-                                 S, Wmax, Sp, out.data_ptr(), _stream())
+    out = words.new_empty((Wmax, Sp))
+    rc = _bound().densify(words.data_ptr(), words.shape[0],
+                          sub_n_words.data_ptr(), S, Wmax, Sp, out.data_ptr(),
+                          _stream(out))
     _check(rc, "k5_densify")
     _count(LAUNCHES, "k5_densify")
     return out

@@ -126,13 +126,14 @@ def dense_words_plain(words: torch.Tensor, sub_n_words: torch.Tensor,
 
 def dense_words(words: torch.Tensor, sub_n_words: torch.Tensor, Wmax: int,
                 Sp: int) -> torch.Tensor:
-    """K5 wrapper: see dense_words_plain. Wmax and Sp come from
-    plane_geometry of the host table."""
+    """K5 wrapper: see dense_words_plain. words (N,) int32 and sub_n_words,
+    the (S,) int32 substream table as the container holds it, on one
+    device; Wmax and Sp come from plane_geometry of the host table. On the
+    card the kernel computes the lane starts itself, so the call is one
+    launch."""
     if words.device.type == "cpu":
         return dense_words_plain(words, sub_n_words, Wmax, Sp)
-    return kernels.densify(words.contiguous(),
-                           word_starts(sub_n_words).contiguous(),
-                           sub_n_words.to(torch.int32).contiguous(), Wmax, Sp)
+    return kernels.densify(words, sub_n_words, Wmax, Sp)
 
 
 #: bit 15 of a two-level entry: look further (a primary entry names a

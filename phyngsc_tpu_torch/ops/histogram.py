@@ -27,11 +27,12 @@ def position_histogram_plain(symbols: torch.Tensor, valid: torch.Tensor,
 
 def position_histogram(symbols: torch.Tensor, valid: torch.Tensor,
                        alphabet_size: int = 256) -> torch.Tensor:
-    """(R, L) uint8 symbols, (R, L) bool validity -> (L, A) int32 counts."""
+    """(R, L) uint8 symbols, (R, L) bool validity -> (L, A) int32 counts;
+    the kernel reads the bool mask's own bytes."""
     if symbols.device.type == "cpu":
         return position_histogram_plain(symbols, valid, alphabet_size)
-    return kernels.histogram(symbols.contiguous(),
-                             valid.to(torch.uint8).contiguous(), alphabet_size)
+    return kernels.histogram(symbols.contiguous(), valid.contiguous(),
+                             alphabet_size)
 
 
 def global_histogram(symbols: torch.Tensor, valid: torch.Tensor,

@@ -193,8 +193,10 @@ def stage_a(buf: np.ndarray, idx: RecordIndex, cfg: CodecConfig,
         seq = st.seq = dna.delta_translate(seq, lens)
     small = int(seq_np.max(initial=0)) < 128
     st.qual_t, st.keep, _ = dna.transfer_ambiguity(seq, qual, lens)
-    q_counts = quality.analyze(st.qual_t, lens)
-    d_counts = dna.analyze(seq, st.keep, small_alpha=small)
+    # the histograms read the R live rows only (contiguous views): the
+    # padding rows' masks are zero, so the counts are the same
+    q_counts = quality.analyze(st.qual_t[:R], lens[:R])
+    d_counts = dna.analyze(seq[:R], st.keep[:R], small_alpha=small)
     st.n_q_counts = q_counts.numel()
     st.counts_blob = torch.cat([q_counts.reshape(-1), d_counts.reshape(-1)])
     if executor is not None:

@@ -52,6 +52,40 @@ def test_histogram_kernel(cuda, R, L, A):
     assert torch.equal(got, ref)
 
 
+@pytest.mark.parametrize("R,L,A,kind", [
+    (1, 37, 256, "random"),          # one row: a ragged 37-byte tail only
+    (40, 37, 256, "offset"),         # a view 37 bytes into its storage
+    (1037, 36, 128, "random"),       # rows off every 16-row run
+    (13, 65535, 256, "random"),      # many position slices, unaligned rows
+    (3, 65535, 1, "random"),
+    (5000, 36, 128, "one"),          # every symbol one value: contention
+    (4096, 64, 256, "one"),          # L = 64: a warp's lanes at 4 positions
+    (2000, 36, 256, "zero"),         # all-zero mask
+    (3000, 37, 1, "random"), (3000, 37, 64, "random"),
+    (3000, 37, 128, "bool"), (3000, 37, 256, "bool"),
+])
+def test_histogram_kernel_edges(cuda, R, L, A, kind):
+    """K1 against its plain version: the live-row shapes stage A passes, any
+    1 <= A <= 256, a bool mask read in place, unaligned views."""
+    rng = np.random.default_rng(R + L + A)
+    sym = rng.integers(0, 256, size=(R + 1, L)).astype(np.uint8)
+    if kind == "one":
+        sym[:] = 65
+    mask = rng.random((R + 1, L)) < (0.0 if kind == "zero" else 0.6)
+    if kind != "bool":
+        mask = mask.astype(np.uint8)
+    s, m = torch.from_numpy(sym), torch.from_numpy(mask)
+    rows = slice(1, None) if kind == "offset" else slice(0, R)
+    before = kernels.LAUNCHES["k1_histogram"]
+    got = histogram.position_histogram(s.to(cuda)[rows], m.to(cuda)[rows],
+                                       A).cpu()
+    assert kernels.LAUNCHES["k1_histogram"] == before + 1
+    ref = histogram.position_histogram_plain(s[rows], m[rows], A)
+    assert torch.equal(got, ref)
+    if kind == "zero":
+        assert not got.any()
+
+
 def _quality_case(R, Rp, Lt, n_trees, seed):
     L = max(4, (Lt + 3) // 4 * 4)
     rng = np.random.default_rng(seed)
@@ -78,7 +112,8 @@ def _quality_case(R, Rp, Lt, n_trees, seed):
 def _plane(words, sub, dev):
     """The walk plane on dev: K5 on the card, its plain version on the CPU."""
     Wmax, Sp = bitpack_host.dense_geometry(sub.numpy())
-    return bitpack.dense_words(words.to(dev), sub.to(dev), Wmax, Sp)
+    return bitpack.dense_words(words.to(dev), sub.to(dev, torch.int32), Wmax,
+                               Sp)
 
 
 @pytest.mark.parametrize("S,max_words,n_short", [
@@ -104,6 +139,17 @@ def test_densify_kernel(cuda, S, max_words, n_short):
     ref = bitpack.dense_words_plain(words, subt, Wmax, Sp)
     assert got.shape == (Wmax, Sp)
     assert torch.equal(got, ref)
+
+
+def test_densify_kernel_starts_past_2_31_words(cuda):
+    """The kernel's lane starts are 64-bit: past 2^32 words (a corrupt
+    table over short words) it reads nothing, as the plain version."""
+    sub = torch.tensor([3, (1 << 31) - 1, (1 << 31) - 1, 2, 4],
+                       dtype=torch.int32)
+    words = torch.arange(11, 21, dtype=torch.int32)
+    got = bitpack.dense_words(words.to(cuda), sub.to(cuda), 256, 128).cpu()
+    assert torch.equal(got, bitpack.dense_words_plain(words, sub, 256, 128))
+    assert int(got[:, 2:].abs().sum()) == 0
 
 
 @pytest.mark.parametrize("R,Lt,n_trees", [(300, 36, 36), (700, 37, 9),

@@ -164,3 +164,40 @@ def test_slice_matches_jax_dma_decode(monkeypatch, build):
         jsubblock._decode_walk_fused.clear_cache()
     assert calls, "phyngsc_tpu's decode did not densify with K5"
     assert decompress_bytes(blob, device="cpu") == data
+
+
+@pytest.mark.parametrize("build", [_uniform, _variable, _huffman])
+def test_dense_words_takes_the_decode_table(build):
+    """dense_words takes each stream's substream table as _decode_device
+    uploads it (the container's int32 table, no starts computed around the
+    call; the lane starts are the kernel's, word_starts in the plain
+    version) and gives phyngsc_tpu's dense_words_np plane."""
+    cfg = CodecConfig(subblock_input_bytes=32 << 10, records_per_substream=8)
+    blob = compress_bytes(build(), cfg, 1, device="cpu")
+    cpu = torch.device("cpu")
+    for p in _parsed(blob):
+        for sub, words in ((p.q_sub, p.q_words), (p.d_sub, p.d_words)):
+            table = subblock._to_device(sub, cpu)
+            assert table.dtype == torch.int32
+            Wmax, Sp = bitpack.plane_geometry(sub, p.G, p.L, cfg.max_code_len)
+            got = bitpack.dense_words(subblock._upload_words(words, cpu),
+                                      table, Wmax, Sp).numpy().view(np.uint32)
+            np.testing.assert_array_equal(got, jbitpack.dense_words_np(
+                np.asarray(words, np.uint32), sub))
+            starts = np.concatenate([[0], np.cumsum(sub, dtype=np.int64)[:-1]])
+            np.testing.assert_array_equal(
+                bitpack.word_starts(table).numpy(), starts)
+
+
+def test_dense_words_starts_past_2_31_words():
+    """Lane starts are 64-bit: a table whose prefix passes 2^32 words
+    (corrupt; words are short) gives zeros there, not words from a start
+    wrapped to 32 bits."""
+    sub = np.array([3, (1 << 31) - 1, (1 << 31) - 1, 2, 4], np.int32)
+    words = np.arange(11, 21, dtype=np.uint32)
+    got = bitpack.dense_words(_i32(words), torch.from_numpy(sub), 256,
+                              128).numpy()
+    want = np.zeros((256, 128), np.int32)
+    want[:3, 0] = words[:3]
+    want[:7, 1] = words[3:]
+    np.testing.assert_array_equal(got, want)

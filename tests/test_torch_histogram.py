@@ -66,3 +66,58 @@ def test_dna_analyze_matches(small):
                                   small_alpha=small))
     assert got.shape == (256,)
     np.testing.assert_array_equal(got.numpy(), ref)
+
+
+@pytest.mark.parametrize("A", [1, 64])
+def test_position_histogram_small_alphabets_match_pallas(A):
+    """Any 1 <= A <= 256 (the card's kernel takes them all): symbols at and
+    above A count nowhere."""
+    rng = np.random.default_rng(A)
+    R, L = 1037, 37
+    sym = rng.integers(0, 2 * A + 2, size=(R, L)).astype(np.uint8)
+    valid = rng.random((R, L)) < 0.6
+    got = histogram.position_histogram(torch.from_numpy(sym),
+                                       torch.from_numpy(valid), A).numpy()
+    pallas = np.asarray(jhist.position_histogram_pallas(
+        jnp.asarray(sym), jnp.asarray(valid), A, interpret=True))
+    assert got.shape == (L, A)
+    np.testing.assert_array_equal(got, pallas)
+
+
+def _stage_a_planes(L, seed):
+    """An Rp-row stage-A plane pair whose padding rows are zero with zero
+    masks, as stage_a leaves them: (R, qual, lens, seq, keep)."""
+    rng = np.random.default_rng(seed)
+    R, Rp = 700, 1024
+    lens = np.zeros(Rp, np.int32)
+    lens[:R] = rng.integers(L // 2, L + 1, size=R)
+    valid = np.arange(L)[None, :] < lens[:, None]
+    qual = np.where(valid, rng.integers(33, 74, size=(Rp, L)), 0).astype(
+        np.uint8)
+    qual[:R:7, 3] = 200  # transferred-ambiguity symbols live above 127
+    seq = np.where(valid, np.frombuffer(b"ACGTN", np.uint8)[
+        rng.integers(0, 5, size=(Rp, L))], 0).astype(np.uint8)
+    keep = valid & (rng.random((Rp, L)) < 0.9)
+    return R, qual, lens, seq, keep
+
+
+@pytest.mark.parametrize("L", [36, 300])
+def test_quality_analyze_on_live_rows(L):
+    """Stage A analyzes the R live rows only: the same counts as the Rp-row
+    plane, in the port and in phyngsc_tpu."""
+    R, qual, lens, _, _ = _stage_a_planes(L, L)
+    q, ln = torch.from_numpy(qual), torch.from_numpy(lens)
+    live = quality.analyze(q[:R], ln[:R]).numpy()
+    np.testing.assert_array_equal(live, quality.analyze(q, ln).numpy())
+    np.testing.assert_array_equal(live, np.asarray(jquality.analyze(
+        jnp.asarray(qual), jnp.asarray(lens))))
+
+
+@pytest.mark.parametrize("small", [True, False])
+def test_dna_analyze_on_live_rows(small):
+    R, _, _, seq, keep = _stage_a_planes(36, 5)
+    s, k = torch.from_numpy(seq), torch.from_numpy(keep)
+    live = dna.analyze(s[:R], k[:R], small).numpy()
+    np.testing.assert_array_equal(live, dna.analyze(s, k, small).numpy())
+    np.testing.assert_array_equal(live, np.asarray(jdna.analyze(
+        jnp.asarray(seq), jnp.asarray(keep), small_alpha=small)))
