@@ -16,16 +16,16 @@ Phases (any failure exits non-zero):
      the sub-block's own quality symbols, since the plain walk would take
      minutes; the walks on the word plane K5 builds, with the two-level
      shared-memory tables the decode builds);
-     results must be exactly equal; times are CUDA-event medians of one
-     call. Beside each case: library_ms, one PyTorch call computing the
-     same function (torch.bincount for K1, advanced indexing for K4,
+     K5 also on lane tables of 16,384 and 131,072 lanes (G = 8 and
+     G = 1 over short reads); results must be exactly equal; times are
+     CUDA-event medians of one call, each call timed alone after a
+     synchronize. Beside each case: library_ms, one PyTorch call computing
+     the same function (torch.bincount for K1, advanced indexing for K4,
      torch.gather for K5, none for the walks), checked equal too and timed
-     in turns with the kernel (then the kernel alone, ms_alone, its calls
-     in a row as a case without a library call), and bound_ms, the least
-     time the card could take (bytes read once and written once at
-     3.35 TB/s, or the operations at 67 T/s, whichever is larger), with the
-     walks' chain floor (their longest lane's steps at one shared-memory
-     load each);
+     the same way, and bound_ms, the least time the card could take (bytes
+     read once and written once at 3.35 TB/s, or the operations at
+     67 T/s, whichever is larger), with the walks' chain floor (their
+     longest lane's steps at one shared-memory load each);
   3. the main path: compress_bytes -> decompress_bytes with device="cuda" on
      --mb MB of synthetic ERR005195 36 bp reads, an SRR-style 76 bp corpus
      whose DNA stream is Huffman-coded, variable-length 100 bp reads,
@@ -69,7 +69,8 @@ import torch  # noqa: E402
 from phyngsc_tpu_torch import (CodecConfig, host_runtime, kernels,  # noqa: E402
                                synthesize_fastq)
 from phyngsc_tpu_torch.models import dna, quality  # noqa: E402
-from phyngsc_tpu_torch.ops import bitpack, histogram, lookup  # noqa: E402
+from phyngsc_tpu_torch.ops import (bitpack, bitpack_host, histogram,  # noqa: E402
+                                   lookup)
 from phyngsc_tpu_torch.pipeline import compress, subblock  # noqa: E402
 from phyngsc_tpu_torch.pipeline.decompress import (  # noqa: E402
     decompress_bytes, decompress_file)
@@ -122,23 +123,30 @@ def require(cond: bool, what: str) -> None:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
 
 
-def cuda_ms(fns, reps: int) -> list:
-    """Median CUDA-event time of one call of each of fns over reps runs,
-    after one warm-up each; the fns take turns run by run, so a drift of
-    the host's speed during the timing falls on all of them alike."""
-    for fn in fns:
-        fn()
-    times = [[] for _ in fns]
+def cuda_ms(fn, reps: int) -> float:
+    """Median CUDA-event time of fn() over reps runs, after one warm-up."""
+    fn()
+    times = []
     for _ in range(reps):
-        for fn, t in zip(fns, times):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn()
-            end.record()
-            end.synchronize()
-            t.append(start.elapsed_time(end))
-    return [statistics.median(t) for t in times]
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def host_ms(fn, reps: int) -> float:
+    """Median host-clock time of fn() over reps runs (host work alone)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times) * 1e3
 
 
 def device_ms(fn, reps: int, kernel_fn: str):
@@ -269,19 +277,21 @@ class FirstSubblock:
         self.dev = dev
 
     def stream(self, which: str):
-        """(linear words, substream table, Wmax, Sp) of the quality ("q") or
-        DNA ("d") stream on the card, as the decode uploads them."""
+        """(linear words, lane table, Wmax, Sp) of the quality ("q") or DNA
+        ("d") stream on the card, as the decode uploads them, and the host
+        substream table."""
         p = self.p
         sub_np = p.q_sub if which == "q" else p.d_sub
         words = subblock._upload_words(p.q_words if which == "q"
                                        else p.d_words, self.dev)
         Wmax, Sp = bitpack.plane_geometry(sub_np, p.G, p.L,
                                           self.cfg.max_code_len)
-        return words, torch.from_numpy(sub_np).to(self.dev), Wmax, Sp
+        lanes = subblock._to_device(bitpack.lane_table(sub_np), self.dev)
+        return (words, lanes, Wmax, Sp), sub_np
 
     def plane(self, which: str) -> torch.Tensor:
         """The stream's word plane, built by K5 as the decode builds it."""
-        return bitpack.dense_words(*self.stream(which))
+        return bitpack.dense_words(*self.stream(which)[0])
 
     def describe(self, what: str) -> None:
         p = self.p
@@ -306,8 +316,8 @@ def compare(kernel: str, name: str, kernel_fn, plain_fn, reps: int,
     """kernel_fn (a launch of `kernel`) against plain_fn on the card: exact
     equality, then the CUDA-event median of one call of each, and of
     library_fn (one PyTorch call of the same function, also held equal)
-    where there is one, the kernel and the library call timed in turns.
-    work: bound() of the case's inputs. The kernel's own device time comes
+    where there is one, each timed alone. work: bound() of the case's
+    inputs. The kernel's own device time comes
     later (phase_device_times), from `_probe`."""
     got = kernel_fn()
     ref = plain_fn()
@@ -317,21 +327,16 @@ def compare(kernel: str, name: str, kernel_fn, plain_fn, reps: int,
     err = int((got.long() - ref.long()).abs().max()) if got.numel() else 0
     require(err == 0, f"{name}: kernel differs from its plain version "
             f"(max abs err {err})")
-    library_ms, alone = None, {}
+    library_ms = None
     if library_fn is not None:
         lib = library_fn()
         require(torch.equal(lib.long(), ref.long()),
                 f"{name}: the library call computes another function")
-        ms, library_ms = cuda_ms([kernel_fn, library_fn], reps)
-        # and the kernel alone, its calls in a row, as a case without a
-        # library call is timed: comparable with such times of another tree
-        alone = {"ms_alone": cuda_ms([kernel_fn], reps)[0]}
-    else:
-        ms, = cuda_ms([kernel_fn], reps)
-    plain_ms = cuda_ms([plain_fn], plain_reps)[0] if plain_reps else None
+        library_ms = cuda_ms(library_fn, reps)
     case = {"case": name, "shape": list(got.shape), "max_abs_err": err,
-            "ms": ms, **alone, "plain_ms": plain_ms, "library_ms": library_ms,
-            **work, **(extra or {})}
+            "ms": cuda_ms(kernel_fn, reps),
+            "plain_ms": cuda_ms(plain_fn, plain_reps) if plain_reps else None,
+            "library_ms": library_ms, **work, **(extra or {})}
     print(f"kernel check: {json.dumps(case)}", flush=True)
     case["_probe"] = (kernel_fn, reps, KERNEL_FN[kernel])
     return case
@@ -474,27 +479,42 @@ def phase_kernels(dev) -> dict:
             lambda: kernels.walk_masked(plane, tot, keep, luts, tid, plain2),
             plain_fn, reps, plain_reps, work, extra=extra))
 
+    def k5_case(name, words, sub_np, Wmax, Sp):
+        """bitpack.dense_words timed as _decode_device calls it, on the
+        words and the lane table as uploaded; lane_table_ms, the host time
+        of the lane table that the decode computes before its upload."""
+        lanes = subblock._to_device(bitpack.lane_table(sub_np), dev)
+        S, n = sub_np.shape[0], words.shape[0]
+        start, sub = lanes[0], lanes[1]
+        w = torch.arange(Wmax, device=dev)[:, None]
+        src = start[None, :] + w
+        src = torch.where((w < sub[None, :]) & (src < n), src, n)
+        index = torch.full((Wmax, Sp), n, dtype=torch.int64, device=dev)
+        index[:, :S] = src
+        padded = torch.cat([words, words.new_zeros(1)])
+        cases["k5_densify"].append(compare(
+            "k5_densify", f"{name} ({Wmax}, {Sp})",
+            lambda: bitpack.dense_words(words, lanes, Wmax, Sp),
+            lambda: bitpack.dense_words_plain(words, lanes, Wmax, Sp),
+            200, 10, bound(4 * int(sub_np.sum()) + 16 * S + 4 * Wmax * Sp),
+            lambda: torch.gather(padded, 0, index.view(-1)).view(Wmax, Sp),
+            extra={"lanes": S, "lane_table_ms": host_ms(
+                lambda: bitpack.lane_table(sub_np), 200)}))
+
     def k5(name, f):
-        """bitpack.dense_words timed as _decode_device calls it: the words
-        and the substream table as uploaded, the lane starts inside the
-        call."""
         for which in ("q", "d"):
-            words, sub, Wmax, Sp = f.stream(which)
-            start = bitpack.word_starts(sub)
-            S, n = sub.shape[0], words.shape[0]
-            w = torch.arange(Wmax, device=dev)[:, None]
-            src = start[None, :] + w
-            src = torch.where((w < sub[None, :]) & (src < n), src, n)
-            index = torch.full((Wmax, Sp), n, dtype=torch.int64, device=dev)
-            index[:, :S] = src
-            padded = torch.cat([words, words.new_zeros(1)])
-            cases["k5_densify"].append(compare(
-                "k5_densify", f"{name} {which} plane ({Wmax}, {Sp})",
-                lambda: bitpack.dense_words(words, sub, Wmax, Sp),
-                lambda: bitpack.dense_words_plain(words, sub, Wmax, Sp),
-                200, 10, bound(4 * int(sub.sum()) + 4 * S + 4 * Wmax * Sp),
-                lambda: torch.gather(padded, 0, index.view(-1)).view(Wmax,
-                                                                     Sp)))
+            (words, _, Wmax, Sp), sub_np = f.stream(which)
+            k5_case(f"{name} {which} plane", words, sub_np, Wmax, Sp)
+
+    def k5_lanes(S, lane_words, seed):
+        """A lane table of S lanes of 1..lane_words words and its words (the
+        quality stream of G = 1 or 8 over short reads)."""
+        rng = np.random.default_rng(seed)
+        sub_np = rng.integers(1, lane_words + 1, size=S).astype(np.int32)
+        words = torch.randint(-(1 << 31), 1 << 31, (int(sub_np.sum()),),
+                              dtype=torch.int32, device=dev)
+        Wmax, Sp = bitpack_host.dense_geometry(sub_np)
+        k5_case(f"k5 {S} lanes", words, sub_np, Wmax, Sp)
 
     def k4(name, sym, tab):
         R, L = sym.shape
@@ -512,13 +532,13 @@ def phase_kernels(dev) -> dict:
     err = FirstSubblock(synthesize_fastq(70000, read_len=36, seed=1), dev)
     err.describe("ERR005195 36 bp")
     a = err.a
-    # the padded planes (all Rp rows), then the R live rows as stage A
-    # passes them
-    k1("k1 quality A=256", a.qual_t, quality.valid_mask(a.lens, a.L), 256)
-    k1("k1 dna keep A=128", a.seq, a.keep, 128)
+    # the R live rows as stage A passes them (the kernels line's K1 row),
+    # then the padded planes (all Rp rows), as earlier trees passed them
     k1("k1 quality A=256 live rows", a.qual_t[:a.R],
        quality.valid_mask(a.lens[:a.R], a.L), 256)
     k1("k1 dna keep A=128 live rows", a.seq[:a.R], a.keep[:a.R], 128)
+    k1("k1 quality A=256", a.qual_t, quality.valid_mask(a.lens, a.L), 256)
+    k1("k1 dna keep A=128", a.seq, a.keep, 128)
     k5("k5 36 bp", err)
     k2("k2 quality walk", err)
     require(err.p.d_plan.mode == dna.MODE_PLAIN,
@@ -565,6 +585,8 @@ def phase_kernels(dev) -> dict:
     require(lanes.G == 64 and lane > 1 << 16,
             f"long-lane sub-block: G = {lanes.G}, longest lane {lane} words")
     k5("k5 long lanes", lanes)
+    k5_lanes(16384, 30, seed=13)
+    k5_lanes(131072, 6, seed=14)
     k3("k3 quality long lanes", lanes, "quality", against_input=True)
 
     reads = FirstSubblock(long_read_corpus(16, seed=11), dev)

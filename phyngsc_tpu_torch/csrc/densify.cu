@@ -1,14 +1,16 @@
 // K5: densify a linear substream-sequential word stream into the
 // (Wmax, Sp) lane-minor plane the walks read:
 //
-//   out[w, s] = words[start[s] + w]   for s < S, w < sub[s], start[s] + w < n
+//   out[w, s] = words[start[s] + w]   for s < S, w < count[s],
+//                                      0 <= start[s] + w < n
 //   out[w, s] = 0                     otherwise (past a lane's words, pad
 //                                      lanes s >= S, reads past the stream)
 //
-// start = the exclusive prefix sum of sub, computed here: each block sums
-// the table in front of its 32 lanes and scans its own 32, so the caller
-// passes the substream table as the container holds it and nothing runs on
-// the device before the launch.
+// The (2, S) int64 lane table holds start, the exclusive prefix sum of the
+// substream table, in row 0 and count, the table itself, in row 1. The host
+// computes it from the container's table, which it has already checked
+// (bitpack.lane_table), and uploads it in one copy, so nothing runs on the
+// device before the launch and the starts cost O(S) whatever S is.
 //
 // Replaces phyngsc_tpu/ops/bitpack.py _dense_rows_kernel / dense_words_pallas
 // (:870-934). The TPU kernel issues one HBM->HBM DMA per lane into an
@@ -24,11 +26,13 @@
 // 32-word tile: each warp reads 32 consecutive words of one lane (coalesced),
 // the tile goes through shared memory (one column of padding against bank
 // conflicts), and each warp writes 32 consecutive lanes of one row
-// (coalesced). The grid holds about as many blocks as the SMs keep resident,
-// and a block loops over its strip's row tiles, so the starts are summed once
-// a block. Summing the table in front of a strip reads at most S words, which
-// stay in L1/L2: the starts cost one dependent load, as the int64 starts read
-// from device memory did.
+// (coalesced). A block reads its 32 lanes' starts and counts into shared
+// memory once and loops over its strip's row tiles; the grid holds about
+// four waves of the blocks the SMs keep resident. Compared on chip_smoke's
+// planes in one process, one wave was slower on tall planes (71,680 rows
+// over 4 strips) and one block a tile on the widest (131,072 lanes); four
+// waves were the fastest of the three, or within 10% of it, on every
+// plane.
 //
 // Untrusted input: every source index is checked against [0, n), every output
 // index against (Wmax, Sp); a corrupt table gives a plane of garbage or zeros,
@@ -38,7 +42,7 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "kernels.h"
+#include "device.h"
 
 namespace {
 
@@ -46,44 +50,19 @@ constexpr int kTile = 32;
 constexpr int kRows = 8;  // threads a tile column: each thread moves 4 words
 constexpr int kThreads = kTile * kRows;
 constexpr int kBlocksPerSm = 2048 / kThreads;
+constexpr int kWaves = 4;
 
 __global__ void __launch_bounds__(kThreads)
 densify_kernel(const uint32_t* __restrict__ words, int64_t n,
-               const int32_t* __restrict__ sub, int S, int Wmax, int Sp,
+               const int64_t* __restrict__ lanes, int S, int Wmax, int Sp,
                uint32_t* __restrict__ out) {
   __shared__ uint32_t tile[kTile][kTile + 1];  // [lane][word]
-  __shared__ int64_t warp_sum[kRows];
-  __shared__ int64_t lane_start[kTile];
-  __shared__ int32_t lane_words[kTile];
+  __shared__ int64_t lane[2][kTile];           // [start | count][lane]
   const int s0 = blockIdx.x * kTile;
-
-  // the words in front of this strip: sub[0] + ... + sub[min(s0, S) - 1]
-  int64_t front = 0;
-  const int n_front = min(s0, S);
-#pragma unroll 4
-  for (int i = threadIdx.y * kTile + threadIdx.x; i < n_front; i += kThreads)
-    front += __ldg(sub + i);
-  // warp 0: this strip's own counts, scanned
-  const int s = s0 + threadIdx.x;
-  const int32_t own = threadIdx.y == 0 && s < S ? __ldg(sub + s) : 0;
-#pragma unroll
-  for (int o = kTile / 2; o; o >>= 1) front += __shfl_xor_sync(~0u, front, o);
-  if (threadIdx.x == 0) warp_sum[threadIdx.y] = front;
-  int64_t inclusive = own;
-  if (threadIdx.y == 0) {
-#pragma unroll
-    for (int o = 1; o < kTile; o <<= 1) {
-      const int64_t v = __shfl_up_sync(~0u, inclusive, o);
-      if (threadIdx.x >= o) inclusive += v;
-    }
-  }
-  __syncthreads();
-  if (threadIdx.y == 0) {
-    int64_t base = 0;
-#pragma unroll
-    for (int k = 0; k < kRows; ++k) base += warp_sum[k];
-    lane_start[threadIdx.x] = base + inclusive - own;
-    lane_words[threadIdx.x] = own;  // 0 for pad lanes s >= S
+  if (threadIdx.y < 2) {
+    const int s = s0 + threadIdx.x;
+    lane[threadIdx.y][threadIdx.x] =
+        s < S ? __ldg(lanes + int64_t{threadIdx.y} * S + s) : 0;
   }
   __syncthreads();
 
@@ -91,18 +70,18 @@ densify_kernel(const uint32_t* __restrict__ words, int64_t n,
     const int w = w0 + threadIdx.x;
     for (int j = threadIdx.y; j < kTile; j += kRows) {
       uint32_t v = 0;
-      if (w < lane_words[j]) {
-        const int64_t src = lane_start[j] + w;
+      if (w < lane[1][j]) {
+        const int64_t src = lane[0][j] + w;
         if (src >= 0 && src < n) v = __ldg(words + src);
       }
       tile[j][threadIdx.x] = v;
     }
     __syncthreads();
-    const int so = s0 + threadIdx.x;
+    const int s = s0 + threadIdx.x;
     for (int j = threadIdx.y; j < kTile; j += kRows) {
       const int wr = w0 + j;
-      if (wr < Wmax && so < Sp)
-        out[static_cast<int64_t>(wr) * Sp + so] = tile[threadIdx.x][j];
+      if (wr < Wmax && s < Sp)
+        out[static_cast<int64_t>(wr) * Sp + s] = tile[threadIdx.x][j];
     }
     __syncthreads();
   }
@@ -110,18 +89,19 @@ densify_kernel(const uint32_t* __restrict__ words, int64_t n,
 
 }  // namespace
 
-// words (n,) uint32, sub (S,) int32, out (Wmax, Sp) uint32 with S <= Sp;
+// words (n,) uint32, lanes (2, S) int64, out (Wmax, Sp) uint32 with S <= Sp;
 // every cell of out is written. Returns cudaGetLastError() after the launch.
-extern "C" int phyngsc_densify(const void* words, int64_t n, const void* sub,
+extern "C" int phyngsc_densify(const void* words, int64_t n, const void* lanes,
                                int S, int Wmax, int Sp, void* out,
                                void* stream) {
   const int gx = (Sp + kTile - 1) / kTile;
   const int tiles = (Wmax + kTile - 1) / kTile;
-  const int resident = phyngsc_sm_count() * kBlocksPerSm;
-  const int gy = std::max(1, std::min({tiles, resident / gx, 65535}));
+  const int blocks = kWaves * phyngsc::sm_count() * kBlocksPerSm;
+  const int gy = std::max(1, std::min({tiles, blocks / gx, 65535}));
   densify_kernel<<<dim3(gx, gy), dim3(kTile, kRows), 0,
                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(words), n, static_cast<const int32_t*>(sub),
-      S, Wmax, Sp, static_cast<uint32_t*>(out));
+      static_cast<const uint32_t*>(words), n,
+      static_cast<const int64_t*>(lanes), S, Wmax, Sp,
+      static_cast<uint32_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }

@@ -21,7 +21,7 @@
 //   fewer blocks would starve the memory system, more would only add tiles
 //   to clear and merge. Blocks have 1024 threads: the same warps an SM
 //   holds in half the blocks of 512, so half the tiles to clear and merge
-//   (measured 10-25% faster by tools/torch_k1_variants.py).
+//   (measured 10-25% faster on an H100).
 // - Tile rows are A | 1 words apart, so the bank of a bin depends on its
 //   position as well as its symbol: lanes of a warp that count the same
 //   few symbols (DNA, skewed qualities) at different positions hit
@@ -33,8 +33,8 @@
 // Integer atomics make the counts exact in any order. Aggregating a warp's
 // lanes that hit one bin (__match_any_sync) before the shared atomic
 // measured 2.5-3x slower on every main-path input and 1.5x on one symbol
-// everywhere (tools/torch_k1_variants.py), and a per-warp copy of the
-// quality tile (37 KB) does not fit, so each cell takes one shared atomic.
+// everywhere, and a per-warp copy of the quality tile (37 KB) does not fit,
+// so each cell takes one shared atomic.
 // At the main path's sizes a thread loads one or two chunks, and the time
 // is the fixed cost of a block (clear, one load's latency, merge): leaving
 // out the merge or the shared atomics saves under 3%.
@@ -43,7 +43,7 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "kernels.h"
+#include "device.h"
 
 namespace {
 
@@ -129,9 +129,10 @@ hist_kernel(const uint8_t* __restrict__ sym, const uint8_t* __restrict__ mask,
 // `blocks`. The opt-in to tiles over 48 KB and the occupancy query run once
 // per device and tile size (one read length gives every sub-block one size).
 cudaError_t blocks_per_sm(int smem, int& blocks) {
-  static int last_smem[kMaxDevices] = {}, last_blocks[kMaxDevices] = {};
-  static bool opted_in[kMaxDevices] = {};
-  const int dev = phyngsc_device();
+  static int last_smem[phyngsc::kMaxDevices] = {},
+             last_blocks[phyngsc::kMaxDevices] = {};
+  static bool opted_in[phyngsc::kMaxDevices] = {};
+  const int dev = phyngsc::device_index();
   if (last_smem[dev] == smem && last_blocks[dev] > 0) {
     blocks = last_blocks[dev];
     return cudaSuccess;
@@ -175,7 +176,7 @@ extern "C" int phyngsc_hist(const void* sym, const void* mask, int R, int L,
   int per_sm = 0;
   err = blocks_per_sm(smem, per_sm);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int resident = per_sm * phyngsc_sm_count();
+  const int resident = per_sm * phyngsc::sm_count();
   // row runs: a multiple of 16 rows each, about resident / gy of them
   const int runs = std::max(1, resident / gy);
   int rows = (R + runs - 1) / runs;

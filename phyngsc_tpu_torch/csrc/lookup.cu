@@ -21,8 +21,6 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "kernels.h"
-
 namespace {
 
 constexpr int kThreads = 256;

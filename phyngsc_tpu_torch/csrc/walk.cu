@@ -59,8 +59,6 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "kernels.h"
-
 namespace {
 
 constexpr int kThreads = 64;  // threads per block, one lane each

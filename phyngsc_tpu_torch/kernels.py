@@ -1,31 +1,27 @@
 """Build, bind and launch the hand-written CUDA kernels (csrc/*.cu): K1
 histogram, K2/K3 walks, K4 lookup, K5 densify.
 
-The sources compile at first use with nvcc into one shared library under
-build/kernels/ (named by a hash of the sources, the flags and the Python
-ABI, so a stale build is never loaded): the kernels' plain C launchers
-(csrc/kernels.h) and csrc/bind.cpp, which makes the library a CPython
-extension module whose functions take the launchers' arguments as ints and
-launch in one call. What ptxas reports of each kernel (registers, shared
-memory, spills) is kept beside the library (build_log). The wrappers reach
-the loaded module without a lock once it is built. Each launch goes on
-PyTorch's current stream, allocates nothing itself and is checked with
-cudaGetLastError; a failed launch raises. LAUNCHES counts the launches of
-each kernel; PLAIN_ON_CUDA counts calls of the plain PyTorch versions on CUDA
-tensors (the pipeline never makes one: its wrappers take the plain versions
-only for CPU tensors).
+The sources compile at first use with nvcc into one shared library with a
+plain C interface under build/kernels/ (named by a hash of the sources, so a
+stale build is never loaded) and bind through ctypes, each entry point's
+argument types set once at load; what ptxas reports of each kernel
+(registers, shared memory, spills) is kept beside the library (build_log).
+The wrappers reach the loaded library without a lock once it is built. Each
+launch goes on PyTorch's current stream, read raw, allocates nothing itself
+and is checked with cudaGetLastError; a failed launch raises. LAUNCHES
+counts the launches of each kernel; PLAIN_ON_CUDA counts calls of the plain
+PyTorch versions on CUDA tensors (the pipeline never makes one: its wrappers
+take the plain versions only for CPU tensors).
 """
 
 from __future__ import annotations
 
+import ctypes
 import glob
 import hashlib
-import importlib.machinery
-import importlib.util
 import os
 import shutil
 import subprocess
-import sysconfig
 import threading
 
 import torch
@@ -74,8 +70,19 @@ PLAIN_ON_CUDA = {"k1_histogram": 0, "k2_walk_uniform": 0, "k3_walk_masked": 0,
 
 _lock = threading.Lock()
 _lib = None
-#: the extension module's name (PyInit_phyngsc_kernels in csrc/bind.cpp)
-_MODULE = "phyngsc_kernels"
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_I64 = ctypes.c_int64
+_SIGNATURES = {
+    "phyngsc_hist": [_P, _P, _I, _I, _I, _P, _P],
+    "phyngsc_walk_uniform": [_P, _I, _I, _P, _P, _I, _I, _I, _P, _I, _I, _P,
+                             _I, _I, _I, _I, _P, _P],
+    "phyngsc_walk_masked": [_P, _I, _I, _P, _P, _P, _I, _I, _I, _P, _I, _I,
+                            _P, _I, _I, _I, _I, _P, _P],
+    "phyngsc_lookup": [_P, _P, _I64, _I, _I, _P, _P],
+    "phyngsc_densify": [_P, _I64, _P, _I, _I, _I, _P, _P],
+}
 
 
 def reset_counts() -> None:
@@ -107,30 +114,16 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def _sources() -> list:
-    return sorted(glob.glob(os.path.join(SRC_DIR, "*.cu"))
-                  + glob.glob(os.path.join(SRC_DIR, "*.cpp")))
-
-
 def library_path() -> str:
     h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
-    h.update(sysconfig.get_config_var("EXT_SUFFIX").encode())
-    for s in sorted(glob.glob(os.path.join(SRC_DIR, "*"))):
+    for s in sorted(glob.glob(os.path.join(SRC_DIR, "*"))):  # headers too
         with open(s, "rb") as f:
             h.update(f.read())
     return os.path.join(BUILD_DIR, f"libphyngsc_kernels_{h.hexdigest()[:12]}.so")
 
 
-def _python_include() -> str:
-    inc = sysconfig.get_paths()["include"]
-    if not os.path.exists(os.path.join(inc, "Python.h")):
-        raise RuntimeError(f"Python.h not found in {inc}: the kernels' "
-                           "binding cannot be built")
-    return inc
-
-
-def build():
-    """Compile (once per source hash) and load the kernels' module."""
+def build() -> ctypes.CDLL:
+    """Compile (once per source hash) and load the kernel library."""
     global _lib
     with _lock:
         if _lib is not None:
@@ -139,8 +132,8 @@ def build():
         if not os.path.exists(path):
             os.makedirs(BUILD_DIR, exist_ok=True)
             tmp = f"{path}.{os.getpid()}.tmp"
-            res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-I", _python_include(),
-                                  "-o", tmp, *_sources()],
+            sources = sorted(glob.glob(os.path.join(SRC_DIR, "*.cu")))
+            res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources],
                                  capture_output=True, text=True)
             if res.returncode != 0:
                 raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
@@ -148,10 +141,11 @@ def build():
             with open(f"{path}.log", "w") as f:
                 f.write(res.stdout + res.stderr)
             os.replace(tmp, path)
-        loader = importlib.machinery.ExtensionFileLoader(_MODULE, path)
-        lib = importlib.util.module_from_spec(
-            importlib.util.spec_from_loader(_MODULE, loader))
-        loader.exec_module(lib)
+        lib = ctypes.CDLL(path)
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         _lib = lib
         return lib
 
@@ -167,8 +161,8 @@ def build_log() -> str:
         return ""
 
 
-def _bound():
-    """The loaded module: after the first build a plain read, without
+def _bound() -> ctypes.CDLL:
+    """The loaded library: after the first build a plain read, without
     build()'s lock."""
     lib = _lib
     return lib if lib is not None else build()
@@ -212,7 +206,7 @@ def histogram(sym: torch.Tensor, mask: torch.Tensor, A: int) -> torch.Tensor:
     if R == 0 or L == 0:
         return out.zero_()
     sym, mask = _aligned16(sym), _aligned16(mask)  # 16-byte loads
-    rc = _bound().hist(sym.data_ptr(), mask.data_ptr(), R, L, A,
+    rc = _bound().phyngsc_hist(sym.data_ptr(), mask.data_ptr(), R, L, A,
                                out.data_ptr(), _stream(out))
     _check(rc, "k1_histogram")
     _count(LAUNCHES, "k1_histogram")
@@ -270,7 +264,7 @@ def walk_uniform(plane: torch.Tensor, totals: torch.Tensor, luts,
     out = torch.zeros((S * G, L), dtype=torch.uint8, device=plane.device)
     if S == 0:
         return out
-    rc = _bound().walk_uniform(
+    rc = _bound().phyngsc_walk_uniform(
         plane.data_ptr(), plane.shape[0], plane.shape[1], totals.data_ptr(),
         *tables, tree_of_pos.data_ptr(), S, G, Lt, L, out.data_ptr(),
         _stream(out))
@@ -305,7 +299,7 @@ def walk_masked(plane: torch.Tensor, totals: torch.Tensor,
     out = torch.zeros((S, T), dtype=torch.uint8, device=plane.device)
     if S == 0:
         return out
-    rc = _bound().walk_masked(
+    rc = _bound().phyngsc_walk_masked(
         plane.data_ptr(), plane.shape[0], plane.shape[1], totals.data_ptr(),
         keep.data_ptr(), *tables,
         None if plain2 else tree_of_pos.data_ptr(), int(plain2), S, T, L,
@@ -328,32 +322,33 @@ def lookup(sym: torch.Tensor, tab: torch.Tensor) -> torch.Tensor:
     out = torch.empty((R, L), dtype=torch.int32, device=sym.device)
     if R == 0 or L == 0:
         return out
-    rc = _bound().lookup(sym.data_ptr(), tab.data_ptr(), R, L, tab.shape[1],
-                         out.data_ptr(), _stream(out))
+    rc = _bound().phyngsc_lookup(sym.data_ptr(), tab.data_ptr(), R, L,
+                                 tab.shape[1], out.data_ptr(), _stream(out))
     _check(rc, "k4_lookup")
     _count(LAUNCHES, "k4_lookup")
     return out
 
 
-def densify(words: torch.Tensor, sub_n_words: torch.Tensor, Wmax: int,
+def densify(words: torch.Tensor, lanes: torch.Tensor, Wmax: int,
             Sp: int) -> torch.Tensor:
-    """K5: (N,) int32 linear words (uint32 bits) and the (S,) int32
-    substream table (lane word counts) -> (Wmax, Sp) int32 plane, out[w, s]
-    = words[start[s] + w] for w < sub_n_words[s], else 0 (pad lanes s >= S
-    and reads past the words included); start, the exclusive prefix sum of
-    the table, is computed by the kernel. Only the checks that keep the
-    launch inside its buffers run here: the kernel bounds every index."""
+    """K5: (N,) int32 linear words (uint32 bits) and the (2, S) int64 lane
+    table (ops/bitpack.py lane_table: row 0 each lane's first word, row 1
+    its word count) -> (Wmax, Sp) int32 plane, out[w, s] = words[start[s] +
+    w] for w < count[s], else 0 (pad lanes s >= S and reads outside the
+    words included). Only the checks that keep the launch inside its
+    buffers run here: the kernel bounds every index."""
     _require(words, "words", torch.int32)
-    _require(sub_n_words, "sub_n_words", torch.int32)
-    S = sub_n_words.numel()
-    if (words.ndim != 1 or sub_n_words.ndim != 1 or S > Sp
-            or sub_n_words.get_device() != words.get_device()
+    _require(lanes, "lanes", torch.int64)
+    S = lanes.shape[1] if lanes.ndim == 2 else -1
+    if (words.ndim != 1 or S < 0 or lanes.shape[0] != 2 or S > Sp
+            or lanes.get_device() != words.get_device()
             or not 0 < Wmax < 1 << 31 or not 0 < Sp < 1 << 31):
-        raise ValueError(f"densify: bad shapes S={S} Wmax={Wmax} Sp={Sp}")
+        raise ValueError(f"densify: bad shapes lanes={tuple(lanes.shape)} "
+                         f"Wmax={Wmax} Sp={Sp}")
     out = words.new_empty((Wmax, Sp))
-    rc = _bound().densify(words.data_ptr(), words.shape[0],
-                          sub_n_words.data_ptr(), S, Wmax, Sp, out.data_ptr(),
-                          _stream(out))
+    rc = _bound().phyngsc_densify(words.data_ptr(), words.shape[0],
+                                  lanes.data_ptr(), S, Wmax, Sp,
+                                  out.data_ptr(), _stream(out))
     _check(rc, "k5_densify")
     _count(LAUNCHES, "k5_densify")
     return out

@@ -77,13 +77,6 @@ def pack_bits_scatter(codes: torch.Tensor, lens: torch.Tensor,
     return words[:n_words]
 
 
-def word_starts(sub_n_words: torch.Tensor) -> torch.Tensor:
-    """Exclusive prefix sum of the substream table: each lane's first word,
-    int64."""
-    sub = sub_n_words.long()
-    return torch.cumsum(sub, dim=0) - sub
-
-
 def lane_words_max(G: int, L: int, max_code_len: int) -> int:
     """The most words a lane of a well-formed sub-block holds: G records of
     at most L symbols, each code at most max_code_len bits, one word of
@@ -106,34 +99,46 @@ def plane_geometry(sub_n_words: np.ndarray, G: int, L: int,
     return dense_geometry(sub)
 
 
-def dense_words_plain(words: torch.Tensor, sub_n_words: torch.Tensor,
-                      Wmax: int, Sp: int) -> torch.Tensor:
-    """Plain version of K5: (N,) int32 linear words -> (Wmax, Sp) int32
-    plane, out[w, s] = words[start[s] + w] for w < sub_n_words[s] (start
-    the exclusive prefix sum), 0 elsewhere: past a lane's words, in pad
-    lanes s >= S and where start[s] + w >= N."""
+def lane_table(sub_n_words: np.ndarray) -> np.ndarray:
+    """(2, S) int64 lane table of a host substream table, which
+    plane_geometry has checked: row 0 each lane's first word (the exclusive
+    prefix sum), row 1 its word count. dense_words takes it uploaded, in one
+    copy."""
+    out = np.empty((2, np.shape(sub_n_words)[0]), np.int64)
+    out[1] = sub_n_words
+    np.cumsum(out[1], out=out[0])
+    out[0] -= out[1]
+    return out
+
+
+def dense_words_plain(words: torch.Tensor, lanes: torch.Tensor, Wmax: int,
+                      Sp: int) -> torch.Tensor:
+    """Plain version of K5: (N,) int32 linear words and the (2, S) int64
+    lane table (lane_table: start, count) -> (Wmax, Sp) int32 plane,
+    out[w, s] = words[start[s] + w] for w < count[s], 0 elsewhere: past a
+    lane's words, in pad lanes s >= S and where start[s] + w lies outside
+    the words."""
     kernels.note_plain("k5_densify", words)
-    sub = sub_n_words.long()
+    start, sub = lanes[0].long(), lanes[1].long()
     S, n = sub.shape[0], words.shape[0]
     w = torch.arange(Wmax, device=words.device)[:, None]
-    src = word_starts(sub)[None, :] + w
-    ok = (w < sub[None, :]) & (src < n)
+    src = start[None, :] + w
+    ok = (w < sub[None, :]) & (src >= 0) & (src < n)
     padded = torch.cat([words, words.new_zeros(1)])
     out = torch.zeros((Wmax, Sp), dtype=torch.int32, device=words.device)
     out[:, :S] = padded[torch.where(ok, src, n)]
     return out
 
 
-def dense_words(words: torch.Tensor, sub_n_words: torch.Tensor, Wmax: int,
+def dense_words(words: torch.Tensor, lanes: torch.Tensor, Wmax: int,
                 Sp: int) -> torch.Tensor:
-    """K5 wrapper: see dense_words_plain. words (N,) int32 and sub_n_words,
-    the (S,) int32 substream table as the container holds it, on one
-    device; Wmax and Sp come from plane_geometry of the host table. On the
-    card the kernel computes the lane starts itself, so the call is one
-    launch."""
+    """K5 wrapper: see dense_words_plain. words (N,) int32 and lanes, the
+    (2, S) int64 lane_table of the stream's host substream table, on one
+    device; Wmax and Sp come from plane_geometry of that table. On the card
+    the call is one launch, with no device op around it."""
     if words.device.type == "cpu":
-        return dense_words_plain(words, sub_n_words, Wmax, Sp)
-    return kernels.densify(words, sub_n_words, Wmax, Sp)
+        return dense_words_plain(words, lanes, Wmax, Sp)
+    return kernels.densify(words, lanes, Wmax, Sp)
 
 
 #: bit 15 of a two-level entry: look further (a primary entry names a

@@ -420,7 +420,8 @@ def _decode_device(p: _DParsed, cfg: CodecConfig, device) -> torch.Tensor:
     q_luts = (p.q_tables.luts(cfg.max_code_len) if p.q_tables.n_trees
               else np.zeros((1, V), np.int32))
     q_plane = bitpack.dense_words(_upload_words(p.q_words, device),
-                                  _to_device(p.q_sub, device), q_wmax, sp)
+                                  _to_device(bitpack.lane_table(p.q_sub),
+                                             device), q_wmax, sp)
     if p.variable:
         qual_t = quality.decode_walk_masked(
             q_plane, lens, q_luts, p.L, p.G, cfg.max_code_len,
@@ -431,7 +432,8 @@ def _decode_device(p: _DParsed, cfg: CodecConfig, device) -> torch.Tensor:
             legacy=cfg.legacy_tail_trees)
     keep = (qual_t < 128) & quality.valid_mask(lens, p.L)
     d_plane = bitpack.dense_words(_upload_words(p.d_words, device),
-                                  _to_device(p.d_sub, device), d_wmax, sp)
+                                  _to_device(bitpack.lane_table(p.d_sub),
+                                             device), d_wmax, sp)
     if p.d_plan.mode == dna.MODE_PLAIN:
         dna_syms = dna.decode_plain_walk(d_plane, keep, p.G)
     else:

@@ -112,8 +112,8 @@ def _quality_case(R, Rp, Lt, n_trees, seed):
 def _plane(words, sub, dev):
     """The walk plane on dev: K5 on the card, its plain version on the CPU."""
     Wmax, Sp = bitpack_host.dense_geometry(sub.numpy())
-    return bitpack.dense_words(words.to(dev), sub.to(dev, torch.int32), Wmax,
-                               Sp)
+    lanes = torch.from_numpy(bitpack.lane_table(sub.numpy()))
+    return bitpack.dense_words(words.to(dev), lanes.to(dev), Wmax, Sp)
 
 
 @pytest.mark.parametrize("S,max_words,n_short", [
@@ -121,10 +121,13 @@ def _plane(words, sub, dev):
     (37, 0, 0),        # a stream with no words
     (130, 40, 57),     # the table points past the last word
     (3, 70000, 0),     # lanes of up to 70,000 words, past 2^16
+    (16384, 12, 0), (131072, 8, 0),  # G = 8 and G = 1 over short reads
 ])
 def test_densify_kernel(cuda, S, max_words, n_short):
     """K5 against dense_words_plain in every cell: pad lanes, empty lanes
-    (a third of them), reads past the words give 0."""
+    (a third of them), reads past the words give 0; the host's lane starts
+    are the table's exclusive prefix sum, as a cumsum on the card gives
+    it."""
     rng = np.random.default_rng(S + max_words + n_short)
     sub = rng.integers(0, max_words + 1, size=S).astype(np.int32)
     sub[rng.random(S) < 0.3] = 0
@@ -132,11 +135,14 @@ def test_densify_kernel(cuda, S, max_words, n_short):
     words = torch.from_numpy(rng.integers(0, 1 << 32, size=n, dtype=np.uint64
                                           ).astype(np.uint32).view(np.int32))
     Wmax, Sp = bitpack_host.dense_geometry(sub)
-    subt = torch.from_numpy(sub)
+    lanes = torch.from_numpy(bitpack.lane_table(sub))
+    on_card = torch.from_numpy(sub).to(cuda, torch.int64)
+    assert torch.equal(lanes[0],
+                       (torch.cumsum(on_card, 0) - on_card).cpu())
     before = kernels.LAUNCHES["k5_densify"]
-    got = bitpack.dense_words(words.to(cuda), subt.to(cuda), Wmax, Sp).cpu()
+    got = bitpack.dense_words(words.to(cuda), lanes.to(cuda), Wmax, Sp).cpu()
     assert kernels.LAUNCHES["k5_densify"] == before + 1
-    ref = bitpack.dense_words_plain(words, subt, Wmax, Sp)
+    ref = bitpack.dense_words_plain(words, lanes, Wmax, Sp)
     assert got.shape == (Wmax, Sp)
     assert torch.equal(got, ref)
 
@@ -144,11 +150,11 @@ def test_densify_kernel(cuda, S, max_words, n_short):
 def test_densify_kernel_starts_past_2_31_words(cuda):
     """The kernel's lane starts are 64-bit: past 2^32 words (a corrupt
     table over short words) it reads nothing, as the plain version."""
-    sub = torch.tensor([3, (1 << 31) - 1, (1 << 31) - 1, 2, 4],
-                       dtype=torch.int32)
+    lanes = torch.from_numpy(bitpack.lane_table(
+        np.array([3, (1 << 31) - 1, (1 << 31) - 1, 2, 4], np.int32)))
     words = torch.arange(11, 21, dtype=torch.int32)
-    got = bitpack.dense_words(words.to(cuda), sub.to(cuda), 256, 128).cpu()
-    assert torch.equal(got, bitpack.dense_words_plain(words, sub, 256, 128))
+    got = bitpack.dense_words(words.to(cuda), lanes.to(cuda), 256, 128).cpu()
+    assert torch.equal(got, bitpack.dense_words_plain(words, lanes, 256, 128))
     assert int(got[:, 2:].abs().sum()) == 0
 
 

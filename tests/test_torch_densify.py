@@ -41,6 +41,11 @@ def _i32(a):
     return torch.from_numpy(np.ascontiguousarray(a, np.uint32).view(np.int32))
 
 
+def _lanes(sub):
+    """The lane table of a host substream table, as dense_words takes it."""
+    return torch.from_numpy(bitpack.lane_table(sub))
+
+
 @pytest.mark.parametrize("S,max_words", [
     (1, 40), (37, 300), (130, 40), (2048, 90),
     (37, 0),           # a stream with no words
@@ -54,7 +59,7 @@ def test_dense_words_matches_jax(S, max_words):
     assert (Wmax, Sp) == bitpack_host.dense_geometry(sub) \
         == jbitpack.dense_geometry(sub)
     before = dict(kernels.LAUNCHES)
-    got = bitpack.dense_words(_i32(words), torch.from_numpy(sub), Wmax, Sp)
+    got = bitpack.dense_words(_i32(words), _lanes(sub), Wmax, Sp)
     assert kernels.LAUNCHES == before  # a CPU tensor takes the plain version
     assert got.dtype == torch.int32 and got.shape == (Wmax, Sp)
     got = got.numpy().view(np.uint32)
@@ -75,7 +80,7 @@ def test_dense_words_reads_past_the_words_as_zero():
     sub = np.array([3, 0, 4], np.int32)
     words = np.array([11, 12, 13, 14, 15], np.uint32)
     Wmax, Sp = bitpack_host.dense_geometry(sub)
-    got = bitpack.dense_words_plain(_i32(words), torch.from_numpy(sub), Wmax,
+    got = bitpack.dense_words_plain(_i32(words), _lanes(sub), Wmax,
                                     Sp).numpy()
     want = np.zeros((Wmax, Sp), np.int32)
     want[:3, 0] = [11, 12, 13]
@@ -168,36 +173,62 @@ def test_slice_matches_jax_dma_decode(monkeypatch, build):
 
 @pytest.mark.parametrize("build", [_uniform, _variable, _huffman])
 def test_dense_words_takes_the_decode_table(build):
-    """dense_words takes each stream's substream table as _decode_device
-    uploads it (the container's int32 table, no starts computed around the
-    call; the lane starts are the kernel's, word_starts in the plain
-    version) and gives phyngsc_tpu's dense_words_np plane."""
+    """dense_words takes each stream's lane table as _decode_device uploads
+    it (lane_table of the container's substream table, one int64 tensor; no
+    starts computed around the call) and gives phyngsc_tpu's dense_words_np
+    plane; the starts are the exclusive prefix sum of the table, as
+    phyngsc_tpu's host layout computes them."""
     cfg = CodecConfig(subblock_input_bytes=32 << 10, records_per_substream=8)
     blob = compress_bytes(build(), cfg, 1, device="cpu")
     cpu = torch.device("cpu")
     for p in _parsed(blob):
         for sub, words in ((p.q_sub, p.q_words), (p.d_sub, p.d_words)):
-            table = subblock._to_device(sub, cpu)
-            assert table.dtype == torch.int32
+            lanes = subblock._to_device(bitpack.lane_table(sub), cpu)
+            assert lanes.dtype == torch.int64 and lanes.shape == (2, len(sub))
             Wmax, Sp = bitpack.plane_geometry(sub, p.G, p.L, cfg.max_code_len)
             got = bitpack.dense_words(subblock._upload_words(words, cpu),
-                                      table, Wmax, Sp).numpy().view(np.uint32)
+                                      lanes, Wmax, Sp).numpy().view(np.uint32)
             np.testing.assert_array_equal(got, jbitpack.dense_words_np(
                 np.asarray(words, np.uint32), sub))
-            starts = np.concatenate([[0], np.cumsum(sub, dtype=np.int64)[:-1]])
-            np.testing.assert_array_equal(
-                bitpack.word_starts(table).numpy(), starts)
+            starts = np.concatenate([[0], np.cumsum(sub)[:-1]])
+            np.testing.assert_array_equal(lanes[0].numpy(), starts)
+            np.testing.assert_array_equal(lanes[1].numpy(), sub)
 
 
 def test_dense_words_starts_past_2_31_words():
     """Lane starts are 64-bit: a table whose prefix passes 2^32 words
-    (corrupt; words are short) gives zeros there, not words from a start
-    wrapped to 32 bits."""
+    (corrupt; words are short) gives starts past 2^32, and the plane zeros
+    there, not words from a start wrapped to 32 bits."""
     sub = np.array([3, (1 << 31) - 1, (1 << 31) - 1, 2, 4], np.int32)
+    lanes = bitpack.lane_table(sub)
+    assert lanes.dtype == np.int64
+    assert lanes[0].tolist() == [0, 3, 2 + (1 << 31), 1 + (1 << 32),
+                                 3 + (1 << 32)]
     words = np.arange(11, 21, dtype=np.uint32)
-    got = bitpack.dense_words(_i32(words), torch.from_numpy(sub), 256,
-                              128).numpy()
+    got = bitpack.dense_words(_i32(words), _lanes(sub), 256, 128).numpy()
     want = np.zeros((256, 128), np.int32)
     want[:3, 0] = words[:3]
     want[:7, 1] = words[3:]
     np.testing.assert_array_equal(got, want)
+
+
+def test_lane_table_of_an_empty_table():
+    """A sub-block without lanes: a (2, 0) table."""
+    assert bitpack.lane_table(np.zeros(0, np.int32)).shape == (2, 0)
+
+
+@pytest.mark.parametrize("R,L,G", [(8, 36, 8), (64, 36, 16), (96, 100, 8),
+                                   (40, 1000, 1), (256, 5, 64)])
+def test_lane_table_matches_the_encode_layout(R, L, G):
+    """The decode's lane table (lane_table of the container's substream
+    table) gives each lane the first word that the encode's layout gave it:
+    phyngsc_tpu's substream_layout_np and the port's substream_layout."""
+    rng = np.random.default_rng(R + L + G)
+    lens = rng.integers(0, 13, size=(R, L))
+    lens[rng.random(R) < 0.2] = 0  # empty records, some empty lanes
+    ref = jbitpack.substream_layout_np(lens, G)
+    lanes = bitpack.lane_table(ref["sub_n_words"])
+    np.testing.assert_array_equal(lanes[0], ref["sub_word_start"])
+    np.testing.assert_array_equal(lanes[1], ref["sub_n_words"])
+    port = bitpack.substream_layout(torch.from_numpy(lens), G)
+    np.testing.assert_array_equal(lanes[0], port["sub_word_start"].numpy())

@@ -419,7 +419,9 @@ def test_quality_decode_at_long_L_with_256_trees(walk):
         torch.from_numpy(tables.codes.astype(np.int64)),
         torch.from_numpy(tables.lens.astype(np.int64)), 1, qual.size + 64)
     words = w[: int(total)].to(torch.int32)
-    plane = bitpack.dense_words(words, sub, int(sub.max()) + 1, 128)
+    plane = bitpack.dense_words(
+        words, torch.from_numpy(bitpack.lane_table(sub.numpy())),
+        int(sub.max()) + 1, 128)
     if walk == "uniform":
         got = quality.decode_walk(plane, lens, tables.luts(BITS), L_LONG,
                                   L_LONG, 1, BITS)

@@ -1,27 +1,24 @@
 #!/usr/bin/env python3
-"""Host cost of the port's K5 call as the decode makes it, on one GPU.
+"""Host cost of the port's K5 step as the decode takes it, on one GPU.
 
     python3 tools/torch_k5_host_profile.py [--calls 1000]
 
-Run from the root of a checkout: that tree's phyngsc_tpu_torch is the one
-profiled (bitpack.dense_words(words, table, Wmax, Sp) is the decode's call
-in every tree since K5 was ported, so two trees compare). Builds the first
-sub-block of a 36 bp ERR005195-style corpus as chip_smoke does and uploads
-its quality words and substream table as _decode_device does. Then, on a
-warm card:
+Run from the root of a checkout. Builds the first sub-block of a 36 bp
+ERR005195-style corpus as chip_smoke does and uploads its quality words as
+_decode_device does. Then, on a warm card:
 
-1. bitpack.dense_words --calls times under cProfile, its per-call split of
+1. bitpack.dense_words(words, lanes, Wmax, Sp), the decode's call on the
+   uploaded lane table, --calls times under cProfile: its per-call split of
    the host time by function (tottime / calls, in microseconds). cProfile
    adds its own cost to each Python call, so its total exceeds the wall
    time; the shares are what it is for.
-2. That call, its output's allocation and torch.gather (chip_smoke's
-   library call for K5), each two ways: the CUDA-event time of one call
-   between a synchronize and the next (median, as chip_smoke times a
-   kernel alone) and the wall time a call over --calls calls in a row
-   (host bound: the card finishes each launch sooner than the host issues
-   the next). Where the tree's kernels load as an extension module
-   (csrc/bind.cpp), also the bare launch through it and through ctypes,
-   the arguments ready.
+2. The pieces of the step and torch.gather (chip_smoke's library call for
+   K5), each two ways: the CUDA-event time of one call between a
+   synchronize and the next (median, as chip_smoke times a case) and the
+   wall time a call over --calls calls in a row (host bound: the card
+   finishes each launch sooner than the host issues the next). The pieces:
+   bitpack.lane_table on the host table, its upload, the output's
+   allocation, the bare launch (arguments ready) and the whole call.
 
 Imports neither jax nor phyngsc_tpu.
 """
@@ -30,7 +27,6 @@ from __future__ import annotations
 
 import argparse
 import cProfile
-import ctypes
 import os
 import pstats
 import statistics
@@ -98,13 +94,12 @@ def main() -> int:
     cfg, p = first_subblock(synthesize_fastq(70000, read_len=36, seed=1), dev)
     Wmax, Sp = bitpack.plane_geometry(p.q_sub, p.G, p.L, cfg.max_code_len)
     words = subblock._upload_words(p.q_words, dev)
-    table = subblock._to_device(p.q_sub, dev)
-    S, n = table.shape[0], words.shape[0]
-    print(f"tree {os.getcwd()}: plane ({Wmax}, {Sp}), S={S}, N={n}",
-          flush=True)
+    lanes = subblock._to_device(bitpack.lane_table(p.q_sub), dev)
+    S, n = lanes.shape[1], words.shape[0]
+    print(f"plane ({Wmax}, {Sp}), S={S}, N={n}", flush=True)
 
     def call():
-        return bitpack.dense_words(words, table, Wmax, Sp)
+        return bitpack.dense_words(words, lanes, Wmax, Sp)
 
     loop_us(call, args.calls)
     prof = cProfile.Profile()
@@ -123,39 +118,28 @@ def main() -> int:
         print(f"  {tottime / args.calls * 1e6:8.2f}  "
               f"{ncalls // args.calls:>3}x {func} ({where})")
 
-    start = bitpack.word_starts(table)
+    start, sub = lanes[0], lanes[1]
     w = torch.arange(Wmax, device=dev)[:, None]
     src = start[None, :] + w
-    ok = (w < table.long()[None, :]) & (src < n)
     index = torch.full((Wmax, Sp), n, dtype=torch.int64, device=dev)
-    index[:, :S] = torch.where(ok, src, n)
+    index[:, :S] = torch.where((w < sub[None, :]) & (src < n), src, n)
     padded = torch.cat([words, words.new_zeros(1)])
-    flat = index.view(-1)
-    out = torch.empty((Wmax, Sp), dtype=torch.int32, device=dev)
+    out = words.new_empty((Wmax, Sp))
+    stream = torch.cuda.current_stream().cuda_stream
+    launch_args = (words.data_ptr(), n, lanes.data_ptr(), S, Wmax, Sp,
+                   out.data_ptr(), stream)
     pieces = {
         "nothing (the event pair alone)": lambda: None,
-        "torch.empty of the plane": lambda: torch.empty(
-            (Wmax, Sp), dtype=torch.int32, device=dev),
+        "bitpack.lane_table (host)": lambda: bitpack.lane_table(p.q_sub),
+        "its upload (_to_device)": lambda: subblock._to_device(
+            bitpack.lane_table(p.q_sub), dev),
         "words.new_empty of the plane": lambda: words.new_empty((Wmax, Sp)),
+        "the launch (ctypes, arguments ready)": lambda: lib.phyngsc_densify(
+            *launch_args),
         "bitpack.dense_words (the decode's call)": call,
-        "torch.gather alone": lambda: torch.gather(padded, 0, flat),
         "torch.gather as chip_smoke's library_ms": lambda: torch.gather(
             padded, 0, index.view(-1)).view(Wmax, Sp),
     }
-    if hasattr(lib, "densify"):  # the extension module of csrc/bind.cpp
-        stream = torch.cuda.current_stream().cuda_stream
-        launch_args = (words.data_ptr(), n, table.data_ptr(), S, Wmax, Sp,
-                       out.data_ptr(), stream)
-        # the same launcher bound through ctypes
-        via_ctypes = ctypes.CDLL(kernels.library_path()).phyngsc_densify
-        via_ctypes.argtypes = [ctypes.c_void_p, ctypes.c_int64,
-                               ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                               ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
-        via_ctypes.restype = ctypes.c_int
-        pieces["the launch through the extension module (arguments ready)"] = (
-            lambda: lib.densify(*launch_args))
-        pieces["the launch through ctypes (arguments ready)"] = (
-            lambda: via_ctypes(*launch_args))
     print("us a call: CUDA event (one call after a synchronize, median) | "
           f"wall ({args.calls} calls in a row)")
     for name, fn in pieces.items():
