@@ -8,14 +8,15 @@ Phases (any failure exits non-zero):
      versions, and the kernels' build time;
   2. each hand-written kernel (K1 histogram, K2 uniform walk, K3 masked walk
      in its plain2, Huffman and per-position-tree quality variants, K4 code
-     lookup, K5 densify) against its plain PyTorch version on the card, on
-     the inputs the pipeline gives it for one default 8 MiB sub-block (36 bp,
-     100 bp variable-length and 1000 bp reads, K5 and K3 on lanes past
-     2^16 words, and K2 and K3 on 65,532 bp reads whose 128 quality trees
-     leave some prefixes no room in shared memory, the last three against
-     the sub-block's own quality symbols, since the plain walk would take
-     minutes; the walks on the word plane K5 builds, with the two-level
-     shared-memory tables the decode builds);
+     lookup on the (T, A) tables and tree ids stage B uploads, K5 densify)
+     against its plain PyTorch version on the card, on the inputs the
+     pipeline gives it for one default 8 MiB sub-block (36 bp, 100 bp
+     variable-length and 1000 bp reads, K5 and K3 on lanes past 2^16
+     words, and K2, K3 and K4 on 65,532 bp reads whose 128 quality trees
+     leave some prefixes no room in shared memory, the walks of the last
+     two against the sub-block's own quality symbols, since the plain walk
+     would take minutes; the walks on the word plane K5 builds, with the
+     two-level shared-memory tables the decode builds);
      K5 also on lane tables of 16,384 and 131,072 lanes (G = 8 and
      G = 1 over short reads); results must be exactly equal; times are
      CUDA-event medians of one call, each call timed alone after a
@@ -262,9 +263,10 @@ class FirstSubblock:
         self.lookups = []
         launch = kernels.lookup
 
-        def record(sym, tab):
-            self.lookups.append((sym.clone(), tab.clone()))
-            return launch(sym, tab)
+        def record(sym, tab, tree=None):
+            self.lookups.append((sym.clone(), tab.clone(),
+                                 None if tree is None else tree.clone()))
+            return launch(sym, tab, tree)
 
         kernels.lookup = record
         try:
@@ -299,7 +301,7 @@ class FirstSubblock:
               f"G={self.G} S={p.Rp // self.G} variable={p.variable} "
               f"delta={p.is_delta} quality trees={p.q_tables.n_trees} "
               f"dna mode={p.d_plan.mode} lookups="
-              f"{[tuple(t.shape) for _, t in self.lookups]}", flush=True)
+              f"{[tuple(t.shape) for _, t, _ in self.lookups]}", flush=True)
 
 
 def bound(nbytes: int, ops: int = 0) -> dict:
@@ -516,18 +518,24 @@ def phase_kernels(dev) -> dict:
         Wmax, Sp = bitpack_host.dense_geometry(sub_np)
         k5_case(f"k5 {S} lanes", words, sub_np, Wmax, Sp)
 
-    def k4(name, sym, tab):
+    def k4(name, sym, tab, tree):
+        """The library call: tab32[tree64[pos], sym64], the table widened
+        to int32 with & 0xFFFF and padded with zeros to 256 symbols (so a
+        symbol >= A reads 0), the tree ids as int64 (tree64[pos] is
+        tree64[None, :])."""
         R, L = sym.shape
-        A = tab.shape[1]
-        padded = torch.zeros((L, 256), dtype=torch.int32, device=dev)
-        padded[:, :A] = tab
-        pos = torch.arange(L, device=dev)[None, :]
+        T, A = tab.shape
+        tab32 = torch.zeros((T, 256), dtype=torch.int32, device=dev)
+        tab32[:, :A] = tab.int() & 0xFFFF
+        rows = (torch.zeros((1, L), dtype=torch.int64, device=dev)
+                if tree is None else tree.long()[None, :])
         sym64 = sym.long()
+        n_ids = 0 if tree is None else L
         cases["k4_lookup"].append(compare(
-            "k4_lookup", name, lambda: kernels.lookup(sym, tab),
-            lambda: lookup.fused_lookup_plain(sym, tab), 100, 5,
-            bound(R * L + 4 * L * A + 4 * R * L),
-            lambda: padded[pos, sym64]))
+            "k4_lookup", name, lambda: kernels.lookup(sym, tab, tree),
+            lambda: lookup.fused_lookup_plain(sym, tab, tree), 100, 5,
+            bound(R * L + 2 * T * A + n_ids + 4 * R * L),
+            lambda: tab32[rows, sym64], extra={"trees": T}))
 
     err = FirstSubblock(synthesize_fastq(70000, read_len=36, seed=1), dev)
     err.describe("ERR005195 36 bp")
@@ -593,6 +601,11 @@ def phase_kernels(dev) -> dict:
     reads.describe("65,532 bp reads")
     k2("k2 quality walk L=65532", reads, against_input=True, reps=3)
     k3("k3 quality L=65532", reads, "quality", against_input=True, reps=3)
+    sym, tab, tree = reads.lookups[0]
+    require(sym.shape[1] == 65532 and tab.shape[0] > 1 and tree is not None,
+            "65,532 bp quality lookup is not one L = 65532 table of trees")
+    k4(f"k4 quality L=65532 T={tab.shape[0]} A={tab.shape[1]}",
+       *reads.lookups[0])
     walks = cases["k2_walk_uniform"] + cases["k3_walk_masked"]
     require(any(c["k"] is not None and c["k"] < bits for c in walks)
             and any(c["k"] == bits for c in walks),

@@ -17,11 +17,11 @@
 //   position of its chunk incrementally (32-bit, no division per cell); only
 //   a ragged tail of fewer than 16 bytes is read byte by byte.
 // - The grid holds as many blocks as the SMs keep resident (occupancy of
-//   this kernel at its tile size), so each SM has enough loads in flight;
-//   fewer blocks would starve the memory system, more would only add tiles
-//   to clear and merge. Blocks have 1024 threads: the same warps an SM
-//   holds in half the blocks of 512, so half the tiles to clear and merge
-//   (measured 10-25% faster on an H100).
+//   this kernel at its tile size, phyngsc::resident_blocks), so each SM has
+//   enough loads in flight; fewer blocks would starve the memory system,
+//   more would only add tiles to clear and merge. Blocks have 1024
+//   threads: the same warps an SM holds in half the blocks of 512, so half
+//   the tiles to clear and merge (measured 10-25% faster on an H100).
 // - Tile rows are A | 1 words apart, so the bank of a bin depends on its
 //   position as well as its symbol: lanes of a warp that count the same
 //   few symbols (DNA, skewed qualities) at different positions hit
@@ -125,34 +125,6 @@ hist_kernel(const uint8_t* __restrict__ sym, const uint8_t* __restrict__ mask,
   }
 }
 
-// Blocks of hist_kernel that an SM keeps resident at smem bytes of tile, in
-// `blocks`. The opt-in to tiles over 48 KB and the occupancy query run once
-// per device and tile size (one read length gives every sub-block one size).
-cudaError_t blocks_per_sm(int smem, int& blocks) {
-  static int last_smem[phyngsc::kMaxDevices] = {},
-             last_blocks[phyngsc::kMaxDevices] = {};
-  static bool opted_in[phyngsc::kMaxDevices] = {};
-  const int dev = phyngsc::device_index();
-  if (last_smem[dev] == smem && last_blocks[dev] > 0) {
-    blocks = last_blocks[dev];
-    return cudaSuccess;
-  }
-  if (smem > 48 * 1024 && !opted_in[dev]) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        hist_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kSliceTileBytes);
-    if (err != cudaSuccess) return err;
-    opted_in[dev] = true;
-  }
-  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, hist_kernel, kThreads, smem);
-  if (err != cudaSuccess) return err;
-  blocks = std::max(1, blocks);
-  last_smem[dev] = smem;
-  last_blocks[dev] = blocks;
-  return cudaSuccess;
-}
-
 }  // namespace
 
 // sym, mask (R, L) uint8, both 16-byte aligned, R * L < 2^31, 1 <= A <= 256;
@@ -174,7 +146,8 @@ extern "C" int phyngsc_hist(const void* sym, const void* mask, int R, int L,
   const int gy = (L + Lc - 1) / Lc;
   const int smem = static_cast<int>(Lc * row_bytes);
   int per_sm = 0;
-  err = blocks_per_sm(smem, per_sm);
+  err = phyngsc::resident_blocks(reinterpret_cast<const void*>(hist_kernel),
+                                 kThreads, smem, per_sm);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int resident = per_sm * phyngsc::sm_count();
   // row runs: a multiple of 16 rows each, about resident / gy of them

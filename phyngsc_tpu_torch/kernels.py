@@ -62,6 +62,19 @@ def table_budget(n_ids: int) -> int:
     return SMEM_BYTES - _walk_smem(0, n_ids)
 
 
+#: threads of a K4 block, and the symbols each of its warps stages in its
+#: shared-memory tile (kThreads, kSpan in csrc/lookup.cu)
+LOOKUP_THREADS = 512
+LOOKUP_SPAN = 512
+
+
+def lookup_smem(T: int, A: int, n_ids: int) -> int:
+    """Shared memory of a K4 block (csrc/lookup.cu): the (T, A) uint16
+    table and n_ids tree ids, each padded to 16 bytes, and a tile a warp."""
+    return (-(-2 * T * A // 16) * 16 + -(-n_ids // 16) * 16
+            + LOOKUP_THREADS // 32 * LOOKUP_SPAN)
+
+
 LAUNCHES = {"k1_histogram": 0, "k2_walk_uniform": 0, "k3_walk_masked": 0,
             "k3_walk_masked/plain2": 0, "k3_walk_masked/huffman": 0,
             "k3_walk_masked/quality": 0, "k4_lookup": 0, "k5_densify": 0}
@@ -80,7 +93,7 @@ _SIGNATURES = {
                              _I, _I, _I, _I, _P, _P],
     "phyngsc_walk_masked": [_P, _I, _I, _P, _P, _P, _I, _I, _I, _P, _I, _I,
                             _P, _I, _I, _I, _I, _P, _P],
-    "phyngsc_lookup": [_P, _P, _I64, _I, _I, _P, _P],
+    "phyngsc_lookup": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
     "phyngsc_densify": [_P, _I64, _P, _I, _I, _I, _P, _P],
 }
 
@@ -310,20 +323,37 @@ def walk_masked(plane: torch.Tensor, totals: torch.Tensor,
     return out
 
 
-def lookup(sym: torch.Tensor, tab: torch.Tensor) -> torch.Tensor:
-    """K4: (R, L) uint8 symbols, (L, A) int32 table -> (R, L) int32,
-    out[r, p] = tab[p, sym[r, p]], 0 where sym[r, p] >= A."""
+def lookup(sym: torch.Tensor, tab: torch.Tensor,
+           tree: torch.Tensor | None = None) -> torch.Tensor:
+    """K4: (R, L) uint8 symbols, (T, A) int16 table holding uint16 fused
+    entries, (L,) uint8 tree ids (None when T == 1; ignored then) -> (R, L)
+    int32, out[r, p] = tab[tree[p], sym[r, p]] & 0xFFFF, 0 where sym[r, p]
+    >= A; an id >= T reads tree T - 1. 1 <= T, A <= 256, R * L < 2^31, and
+    the table and the ids fit one block's shared memory beside its warps'
+    tiles (lookup_smem)."""
     _require(sym, "symbols", torch.uint8)
-    _require(tab, "table", torch.int32)
+    _require(tab, "table", torch.int16)
     R, L = sym.shape
-    if tab.ndim != 2 or tab.shape[0] != L or not 1 <= tab.shape[1] <= 256:
+    T, A = tab.shape if tab.ndim == 2 else (0, 0)
+    if T == 1:
+        tree = None
+    elif tree is not None:
+        _require(tree, "tree ids", torch.uint8)
+    if (not 1 <= T <= 256 or not 1 <= A <= 256 or R * L >= 1 << 31
+            or (T > 1 and (tree is None or tree.shape != (L,)))
+            or lookup_smem(T, A, L if T > 1 else 0) > SMEM_BYTES):
         raise ValueError(f"lookup: bad shapes {tuple(sym.shape)} "
-                         f"{tuple(tab.shape)}")
+                         f"{tuple(tab.shape)} tree="
+                         f"{None if tree is None else tuple(tree.shape)}")
     out = torch.empty((R, L), dtype=torch.int32, device=sym.device)
     if R == 0 or L == 0:
         return out
-    rc = _bound().phyngsc_lookup(sym.data_ptr(), tab.data_ptr(), R, L,
-                                 tab.shape[1], out.data_ptr(), _stream(out))
+    sym, tab = _aligned16(sym), _aligned16(tab)  # 16-byte loads
+    if tree is not None:
+        tree = _aligned16(tree)
+    rc = _bound().phyngsc_lookup(sym.data_ptr(), tab.data_ptr(),
+                                 None if tree is None else tree.data_ptr(),
+                                 R * L, L, A, T, out.data_ptr(), _stream(out))
     _check(rc, "k4_lookup")
     _count(LAUNCHES, "k4_lookup")
     return out

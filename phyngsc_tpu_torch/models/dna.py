@@ -192,23 +192,22 @@ for _i, _c in enumerate(b"ACGT"):
 
 
 def encode_device(seq: torch.Tensor, keep: torch.Tensor,
-                  codes_tab: torch.Tensor, lens_tab: torch.Tensor,
-                  mode: int, records_per_substream: int, n_words_cap: int,
+                  tab: torch.Tensor | None, mode: int,
+                  records_per_substream: int, n_words_cap: int,
                   group: int = 2, off: int = 0):
     """Pack kept DNA symbols. Returns (words (n_words_cap,) int64 holding
     uint32, sub_n_words (S,) int64, total_words 0-d int64). Plain mode packs
-    16 bases per element; Huffman mode looks codes up on K4 in the (A,)
-    tables (sliced to an alphabet window at `off`), broadcast to one row per
-    position as phyngsc_tpu does, and groups `group` codes."""
+    16 bases per element and takes no table (tab None); Huffman mode looks
+    codes up on K4 in tab, the (1, A) int16 fused code table
+    (lookup.fused_table_np) sliced to an alphabet window at `off`, and
+    groups `group` codes."""
     if mode == MODE_PLAIN:
         vals = _table(SYM2BIT, seq.device)[seq.long()]
         pc, pl = lookup.group_fixed2(vals, keep, 16)
     else:
-        A = codes_tab.shape[-1]
+        A = tab.shape[-1]
         sym = (seq.int() - off).clamp(0, A - 1).to(torch.uint8)
-        fused_tab = lookup.fuse_tables(codes_tab, lens_tab)[None, :].expand(
-            seq.shape[1], A)
-        codes, lens = lookup.split_fused(lookup.fused_lookup(sym, fused_tab))
+        codes, lens = lookup.split_fused(lookup.fused_lookup(sym, tab))
         codes = torch.where(keep, codes, 0)
         lens = torch.where(keep, lens, 0)
         pc, pl = lookup.group_codes(codes, lens, group)

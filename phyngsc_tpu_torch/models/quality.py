@@ -170,22 +170,29 @@ def build_tables(counts: np.ndarray, cfg: CodecConfig) -> QualityTables:
 
 # -- encode -----------------------------------------------------------------
 
-def encode_device(qual: torch.Tensor, lens: torch.Tensor,
-                  codes_tab: torch.Tensor, lens_tab: torch.Tensor,
-                  records_per_substream: int, n_words_cap: int,
-                  group: int = 2, off: int = 0):
+def encode_tables(codes, lens, L: int) -> tuple:
+    """Host tables of encode_device for (n_trees, A) code tables at read
+    width L: the (n_trees, A) int16 fused entries (lookup.fused_table_np)
+    and the (L,) uint8 tree of each position (tree_of_position, container
+    v4+)."""
+    tab = lookup.fused_table_np(codes, lens)
+    tree = tree_of_position(torch.arange(L), tab.shape[0], L)
+    return tab.view(np.int16), tree.numpy().astype(np.uint8)
+
+
+def encode_device(qual: torch.Tensor, lens: torch.Tensor, tab: torch.Tensor,
+                  tree: torch.Tensor, records_per_substream: int,
+                  n_words_cap: int, group: int = 2, off: int = 0):
     """Pack the quality stream. Returns (words (n_words_cap,) int64 holding
-    uint32, sub_n_words (S,) int64, total_words 0-d int64). codes_tab /
-    lens_tab are (n_trees, A) tables, possibly sliced to an alphabet window
-    starting at `off` (lookup.window_np)."""
+    uint32, sub_n_words (S,) int64, total_words 0-d int64). tab, tree: the
+    tables of encode_tables on the device, of code tables possibly sliced to
+    an alphabet window starting at `off` (lookup.window_np). K4 looks the
+    codes up in them."""
     L = qual.shape[1]
-    n_trees = lens_tab.shape[0]
-    tree = tree_of_position(torch.arange(L, device=qual.device), n_trees, L)
     v = valid_mask(lens, L)
-    sym = (qual.int() - off).clamp(0, codes_tab.shape[1] - 1).to(torch.uint8)
-    fused = lookup.fused_lookup(sym,
-                                lookup.fuse_tables(codes_tab, lens_tab)[tree])
-    sym_codes, sym_lens = lookup.split_fused(fused)
+    sym = (qual.int() - off).clamp(0, tab.shape[1] - 1).to(torch.uint8)
+    sym_codes, sym_lens = lookup.split_fused(lookup.fused_lookup(sym, tab,
+                                                                 tree))
     sym_codes = torch.where(v, sym_codes, 0)
     sym_lens = torch.where(v, sym_lens, 0)
     pc, pl = lookup.group_codes(sym_codes, sym_lens, group)

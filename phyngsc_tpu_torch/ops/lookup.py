@@ -1,11 +1,13 @@
 """Code-table lookups and symbol grouping (port of phyngsc_tpu/ops/lookup.py).
 
 fused_lookup is the K4 wrapper: CUDA tensors launch the hand-written table
-gather (csrc/lookup.cu), CPU tensors take fused_lookup_plain. The TPU's
-one-hot matmul variants exist only because XLA:TPU serializes gathers and
-Pallas cannot gather from VMEM; they are not ported. Grouped code values
-travel as int64 so that every shift is exact (torch's uint32 coverage is
-thin).
+gather (csrc/lookup.cu), CPU tensors take fused_lookup_plain. It takes the
+(T, A) table of each tree and the tree of each position, where the TPU
+kernel takes the (L, A) table of each position: the host fuses the tables
+(fused_table_np) and the encode uploads them once. The TPU's one-hot matmul
+variants exist only because XLA:TPU serializes gathers and Pallas cannot
+gather from VMEM; they are not ported. Grouped code values travel as int64
+so that every shift is exact (torch's uint32 coverage is thin).
 """
 
 from __future__ import annotations
@@ -42,34 +44,43 @@ def window_np(counts) -> tuple:
     raise AssertionError("symbol alphabet exceeds 256")
 
 
-def fuse_tables(codes: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
-    """(T, A) codes + (T, A) lens -> (T, A) int32 fused entries (< 2^16).
-    Requires code < 2**CODE_BITS (max_code_len <= 12)."""
-    return ((lens.long() << CODE_BITS) | codes.long()).to(torch.int32)
+# fused_table_np is copied from phyngsc_tpu/ops/lookup.py:33 fuse_tables
+# (numpy in place of jax.numpy, uint16 entries in place of int32).
+def fused_table_np(codes, lens) -> np.ndarray:
+    """(T, A) codes + (T, A) lens -> (T, A) uint16 fused entries. Requires
+    code < 2**CODE_BITS (max_code_len <= 12, which CodecConfig enforces),
+    so every entry is below 13 << CODE_BITS."""
+    return ((np.asarray(lens).astype(np.int32) << CODE_BITS)
+            | np.asarray(codes).astype(np.int32)).astype(np.uint16)
 
 
-def fused_lookup_plain(symbols: torch.Tensor,
-                       fused_tab: torch.Tensor) -> torch.Tensor:
-    """Plain version of K4: symbols (R, L), fused_tab (L, A) -> (R, L) int32,
-    out[r, p] = fused_tab[p, sym[r, p]]; a symbol outside [0, A) gives 0, as
-    the TPU kernel's one-hot matches no column."""
+def fused_lookup_plain(symbols: torch.Tensor, tab: torch.Tensor,
+                       tree: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain version of K4: symbols (R, L), tab (T, A) fused entries (int16
+    holding uint16, widened with & 0xFFFF), tree (L,) tree ids or None (tree
+    0 everywhere) -> (R, L) int32, out[r, p] = tab[tree[p], sym[r, p]]. An
+    id >= T reads tree T - 1; a symbol outside [0, A) gives 0, as the TPU
+    kernel's one-hot matches no column."""
     kernels.note_plain("k4_lookup", symbols)
     L = symbols.shape[1]
-    A = fused_tab.shape[1]
+    T, A = tab.shape
     s = symbols.long()
     hit = (s >= 0) & (s < A)
-    pos = torch.arange(L, device=symbols.device)[None, :]
-    out = fused_tab[pos, s.clamp(0, A - 1)]
+    rows = (torch.zeros(L, dtype=torch.long, device=symbols.device)
+            if tree is None else tree.long().clamp(0, T - 1))
+    out = (tab.long() & 0xFFFF)[rows[None, :], s.clamp(0, A - 1)]
     return torch.where(hit, out, 0).to(torch.int32)
 
 
-def fused_lookup(symbols: torch.Tensor, fused_tab: torch.Tensor) -> torch.Tensor:
-    """K4 wrapper. symbols (R, L) uint8, fused_tab (L, A) int32 fused
-    entries -> (R, L) int32 (see fused_lookup_plain)."""
+def fused_lookup(symbols: torch.Tensor, tab: torch.Tensor,
+                 tree: torch.Tensor | None = None) -> torch.Tensor:
+    """K4 wrapper. symbols (R, L) uint8, tab (T, A) int16 fused entries
+    (fused_table_np), tree (L,) uint8 tree ids or None when T == 1 -> (R, L)
+    int32 (see fused_lookup_plain)."""
     if symbols.device.type == "cpu":
-        return fused_lookup_plain(symbols, fused_tab)
-    return kernels.lookup(symbols.contiguous(),
-                          fused_tab.to(torch.int32).contiguous())
+        return fused_lookup_plain(symbols, tab, tree)
+    return kernels.lookup(symbols.contiguous(), tab.contiguous(),
+                          None if tree is None else tree.contiguous())
 
 
 def split_fused(fused: torch.Tensor):

@@ -7,16 +7,16 @@ One sub-block of records -> self-contained bytes, section layout
 byte-identical to phyngsc_tpu. Encode: stage_a gathers the planes on the
 host, uploads the raw (Rp, L) seq/qual planes and runs the ambiguity
 transfer (after the SOLiD colour-space translation, for delta sub-blocks)
-and both histograms (K1) on the device; stage_b builds the tables on the
-host and packs both streams on the device (code lookups on K4); stage_c
-fetches the words and assembles the sections. Decode: _decode_parse is host
-code; decode_stage_a uploads the linear word streams and host-built LUTs,
-lays each stream out as its (Wmax, Sp) word plane (K5), decodes quality (K2
-for uniform lengths, K3 with per-position trees for variable lengths) then
-DNA (K3) from the planes, restores the ambiguity and undoes the delta
-translation on the device; decode_stage_b fetches the restored planes and
-reassembles FASTQ text. Every read length the container holds (up to 65535)
-is taken.
+and both histograms (K1) on the device; stage_b builds and fuses the code
+tables on the host, uploads them in one copy and packs both streams on the
+device (code lookups on K4); stage_c fetches the words and assembles the
+sections. Decode: _decode_parse is host code; decode_stage_a uploads the
+linear word streams and host-built LUTs, lays each stream out as its (Wmax,
+Sp) word plane (K5), decodes quality (K2 for uniform lengths, K3 with
+per-position trees for variable lengths) then DNA (K3) from the planes,
+restores the ambiguity and undoes the delta translation on the device;
+decode_stage_b fetches the restored planes and reassembles FASTQ text.
+Every read length the container holds (up to 65535) is taken.
 """
 
 from __future__ import annotations
@@ -98,6 +98,23 @@ def _exact_cap(counts: np.ndarray, lens_tab: np.ndarray, S: int,
 
 def _to_device(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+def _upload_together(arrays, device) -> list:
+    """Host arrays -> device tensors of the same dtypes and shapes, made by
+    one host-to-device copy: each array starts on a 16-byte boundary of one
+    uint8 buffer (the kernels load 16 bytes at a time)."""
+    offs, n = [], 0
+    for a in arrays:
+        offs.append(n)
+        n += -(-a.nbytes // 16) * 16
+    buf = np.zeros(n, np.uint8)
+    for a, o in zip(arrays, offs):
+        buf[o:o + a.nbytes] = np.ascontiguousarray(a).reshape(-1).view(
+            np.uint8)
+    dev = _to_device(buf, device)
+    return [dev[o:o + a.nbytes].view(torch.from_numpy(a[:0]).dtype).view(
+        a.shape) for a, o in zip(arrays, offs)]
 
 
 def _upload_words(words: np.ndarray, device) -> torch.Tensor:
@@ -217,15 +234,20 @@ def stage_b(a: _StageA, cfg: CodecConfig) -> _StageB:
     huffman_dna = st.d_plan.mode == dna.MODE_HUFFMAN
     d_group = (lookup.group_for(int(st.d_plan.lens_tab.max()) or 1)
                if huffman_dna else 2)
-    # slice the device tables to the occupied alphabet window, as the JAX
-    # encoder does (header serialization keeps the full tables)
+    # fuse the code tables on the host, sliced to the occupied alphabet
+    # window as the JAX encoder slices them (header serialization keeps the
+    # full tables), and upload them with the quality tree ids in one copy
     q_off, q_A = lookup.window_np(q_counts)
-    q_codes = _to_device(st.q_tables.codes[:, q_off:q_off + q_A].astype(np.int64), dev)
-    q_lens = _to_device(st.q_tables.lens[:, q_off:q_off + q_A].astype(np.int64), dev)
-    d_off, d_A = (lookup.window_np(d_counts.reshape(1, -1)) if huffman_dna
-                  else (0, dna.ALPHABET))
-    d_codes = _to_device(st.d_plan.codes_tab[d_off:d_off + d_A].astype(np.int64), dev)
-    d_lens = _to_device(st.d_plan.lens_tab[d_off:d_off + d_A].astype(np.int64), dev)
+    tables = list(quality.encode_tables(
+        st.q_tables.codes[:, q_off:q_off + q_A],
+        st.q_tables.lens[:, q_off:q_off + q_A], a.L))
+    d_off = 0
+    if huffman_dna:
+        d_off, d_A = lookup.window_np(d_counts.reshape(1, -1))
+        tables.append(lookup.fused_table_np(
+            st.d_plan.codes_tab[None, d_off:d_off + d_A],
+            st.d_plan.lens_tab[None, d_off:d_off + d_A]).view(np.int16))
+    q_tab_d, q_tree_d, *d_tab_d = _upload_together(tables, dev)
 
     S = a.Rp // G
     worst = _word_cap(a.Rp, a.L, G)
@@ -235,10 +257,10 @@ def stage_b(a: _StageA, cfg: CodecConfig) -> _StageB:
     d_cap = _exact_cap(d_counts, st.d_plan.lens_tab if huffman_dna
                        else np.full(256, 2, np.int64), S, worst)
     q_words, q_sub, q_total = quality.encode_device(
-        a.qual_t, a.lens, q_codes, q_lens, G, q_cap, q_group, q_off)
+        a.qual_t, a.lens, q_tab_d, q_tree_d, G, q_cap, q_group, q_off)
     d_words, d_sub, d_total = dna.encode_device(
-        a.seq, a.keep, d_codes, d_lens, st.d_plan.mode, G, d_cap, d_group,
-        d_off)
+        a.seq, a.keep, d_tab_d[0] if d_tab_d else None, st.d_plan.mode, G,
+        d_cap, d_group, d_off)
     st.blob = torch.cat([q_words, d_words, q_sub, d_sub, q_total.view(1),
                          d_total.view(1)])
     st.blob_layout = (q_cap, d_cap, S)

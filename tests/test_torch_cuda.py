@@ -1,6 +1,9 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, on the
 card, at edge shapes the smoke test does not reach: several position tiles
-and out-of-alphabet symbols (K1, K4), pad lanes, empty lanes, streams with
+and out-of-alphabet symbols (K1, K4), spans that wrap several rows, ragged
+tails, one tree or ids past the last tree and unaligned symbols (K4), both
+launched from several host threads at once (K1, K4), pad lanes, empty
+lanes, streams with
 no words and tables pointing past the words (K5), merged and singleton
 trees, dead lanes and cursors running past the plane's rows (K2, K3, on the
 plane K5 builds), per-position trees over variable lengths (K3), both
@@ -8,7 +11,7 @@ branches of the walks' tables (full tables, two-level tables with escapes,
 escaped prefixes left to the full LUT, and no tables in shared memory at
 all) on corrupt streams, lanes whose slot ranges are not 16-byte aligned,
 lanes past 2^16 words, reads of 65,532 positions over 256 trees, and round
-trips of every input class. Skipped
+trips of every input class, also at G = 33 over L = 500 (K3). Skipped
 without a CUDA device; on the card (which has no jax) run
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -29,6 +32,13 @@ from phyngsc_tpu_torch.pipeline.decompress import decompress_bytes
 pytestmark = pytest.mark.cuda
 G = 16
 BITS = 12
+
+
+def _enc(codes, lens, L):
+    """quality.encode_device's tables of (n_trees, A) code tables, on the
+    CPU."""
+    return tuple(torch.from_numpy(t)
+                 for t in quality.encode_tables(codes, lens, L))
 
 
 @pytest.fixture
@@ -102,8 +112,7 @@ def _quality_case(R, Rp, Lt, n_trees, seed):
         counts = merged
     tables = quality.build_tables(counts, CodecConfig())
     w, sub, total = quality.encode_device(
-        q, lens, torch.from_numpy(tables.codes.astype(np.int64)),
-        torch.from_numpy(tables.lens.astype(np.int64)), G, qual.size + 64)
+        q, lens, *_enc(tables.codes, tables.lens, L), G, qual.size + 64)
     words = torch.from_numpy(
         w[: int(total)].numpy().astype(np.uint32).view(np.int32))
     return qual, lens, L, tables, words, sub
@@ -182,10 +191,10 @@ def test_masked_walk_kernel(cuda, alphabet):
     keep[:R] = rng.random((R, L)) < 0.9
     s, k = torch.from_numpy(seq), torch.from_numpy(keep)
     plan = dna.plan(dna.analyze(s, k).numpy(), CodecConfig())
-    w, sub, total = dna.encode_device(
-        s, k, torch.from_numpy(plan.codes_tab.astype(np.int64)),
-        torch.from_numpy(plan.lens_tab.astype(np.int64)), plan.mode, G,
-        seq.size + 64)
+    tab = (None if plan.mode == dna.MODE_PLAIN else torch.from_numpy(
+        lookup.fused_table_np(plan.codes_tab[None], plan.lens_tab[None])
+        .view(np.int16)))
+    w, sub, total = dna.encode_device(s, k, tab, plan.mode, G, seq.size + 64)
     words = torch.from_numpy(
         w[: int(total)].numpy().astype(np.uint32).view(np.int32))
     plane, plane_c = _plane(words, sub, cuda), _plane(words, sub, "cpu")
@@ -226,19 +235,79 @@ def test_walks_past_the_end(cuda):
         assert torch.equal(got, ref)
 
 
-@pytest.mark.parametrize("R,L,A", [(1, 1, 64), (1030, 37, 128),
-                                   (3000, 100, 256), (500, 1000, 256),
-                                   (70000, 36, 64)])
-def test_lookup_kernel(cuda, R, L, A):
-    """K4: several position tiles (A = 256 stages 48 positions), symbols
-    at or above A, row counts off every tile size."""
-    rng = np.random.default_rng(R + L + A)
+@pytest.mark.parametrize("R,L,A,T,kind", [
+    (1, 1, 64, 1, "random"), (1030, 37, 128, 37, "random"),
+    (3000, 100, 256, 100, "random"), (500, 1000, 256, 256, "random"),
+    (70000, 36, 64, 36, "random"),
+    (4099, 1, 256, 1, "random"),     # L = 1: a span wraps 512 rows
+    (1001, 7, 64, 7, "random"), (333, 15, 128, 5, "random"),
+    (17, 33, 256, 33, "random"),     # R * L % 16 != 0, no whole span
+    (2000, 37, 256, 9, "offset"),    # a view 1 byte into its storage
+    (5000, 36, 64, 1, "random"),     # one tree, no ids (the DNA stream)
+    (16, 65532, 256, 128, "random"),  # 128 KB-sized table beside 64 KB ids
+    (3000, 40, 256, 4, "max"),       # entries at 0xFFFF
+    (3000, 40, 64, 4, "ids"),        # ids past the last tree
+])
+def test_lookup_kernel(cuda, R, L, A, T, kind):
+    """K4 against its plain version: any L (spans that wrap several rows, a
+    ragged tail), the encode's tree ids, one tree, symbols at or above A,
+    unaligned symbols, entries read back as uint16."""
+    rng = np.random.default_rng(R + L + A + T)
     sym = torch.from_numpy(rng.integers(0, 256, size=(R, L)).astype(np.uint8))
-    tab = torch.from_numpy(rng.integers(0, 1 << 16, size=(L, A)).astype(
-        np.int32))
-    got = lookup.fused_lookup(sym.to(cuda), tab.to(cuda)).cpu()
-    ref = lookup.fused_lookup_plain(sym, tab)
+    tab = rng.integers(0, 1 << 16, size=(T, A))
+    if kind == "max":
+        tab[:, ::3] = 0xFFFF
+    tab = torch.from_numpy(tab.astype(np.uint16).view(np.int16))
+    tree = torch.from_numpy(quality.encode_tables(
+        np.zeros((T, A), np.int64), np.zeros((T, A), np.int64), L)[1])
+    if kind == "ids":
+        tree = torch.from_numpy(rng.integers(0, 256, size=L).astype(np.uint8))
+    sym_c = sym.to(cuda)
+    if kind == "offset":
+        buf = torch.empty(R * L + 1, dtype=torch.uint8, device=cuda)
+        sym_c = buf[1:].view(R, L)
+        sym_c.copy_(sym)
+        assert sym_c.data_ptr() % 16
+    before = kernels.LAUNCHES["k4_lookup"]
+    got = lookup.fused_lookup(sym_c, tab.to(cuda),
+                              tree.to(cuda) if T > 1 else None).cpu()
+    assert kernels.LAUNCHES["k4_lookup"] == before + 1
+    ref = lookup.fused_lookup_plain(sym, tab, tree if T > 1 else None)
     assert torch.equal(got, ref)
+    if kind == "max":
+        assert (got == 0xFFFF).any()
+
+
+def test_histogram_and_lookup_from_threads(cuda):
+    """K1 and K4 at two read lengths (two shared-memory sizes each) launched
+    from eight host threads at once, as compress_bytes' thread pool does:
+    each result equals its plain version."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    cases = []
+    for L, T in ((36, 36), (1000, 256)):
+        rng = np.random.default_rng(L)
+        sym = torch.from_numpy(rng.integers(0, 256, size=(600, L)).astype(
+            np.uint8))
+        mask = torch.from_numpy(rng.random((600, L)) < 0.7)
+        tab = torch.from_numpy(rng.integers(0, 1 << 16, size=(T, 256)).astype(
+            np.uint16).view(np.int16))
+        tree = torch.from_numpy(quality.encode_tables(
+            np.zeros((T, 256), np.int64), np.zeros((T, 256), np.int64), L)[1])
+        cases.append(((sym.to(cuda), mask.to(cuda), tab.to(cuda),
+                       tree.to(cuda)),
+                      (histogram.position_histogram_plain(sym, mask, 256),
+                       lookup.fused_lookup_plain(sym, tab, tree))))
+
+    def run(i):
+        (sym, mask, tab, tree), (h_ref, k_ref) = cases[i % 2]
+        h = kernels.histogram(sym, mask, 256)
+        k = kernels.lookup(sym, tab, tree)
+        torch.cuda.current_stream().synchronize()
+        return torch.equal(h.cpu(), h_ref) and torch.equal(k.cpu(), k_ref)
+
+    with ThreadPoolExecutor(8) as pool:
+        assert all(pool.map(run, range(64)))
 
 
 @pytest.mark.parametrize("Lmax,n_trees,legacy", [(37, 37, False),
@@ -270,8 +339,7 @@ def test_masked_walk_kernel_per_position_trees(cuda, Lmax, n_trees, legacy):
     else:
         enc = tables
     w, sub, total = quality.encode_device(
-        q, ln, torch.from_numpy(enc.codes.astype(np.int64)),
-        torch.from_numpy(enc.lens.astype(np.int64)), G, qual.size + 64)
+        q, ln, *_enc(enc.codes, enc.lens, L), G, qual.size + 64)
     words = torch.from_numpy(
         w[: int(total)].numpy().astype(np.uint32).view(np.int32))
     luts = tables.luts(BITS)
@@ -305,6 +373,31 @@ def test_input_classes_on_card_match_cpu(cuda, case):
     blob = compress_bytes(data, cfg, 2, device=cuda)
     assert blob == compress_bytes(data, cfg, 2, device="cpu")
     assert decompress_bytes(blob, device=cuda) == data
+
+
+def test_odd_g_on_card_matches_cpu(cuda):
+    """G = 33 over variable-length reads bucketed to L = 500, whose qualities
+    drift so several trees stay (tests/test_torch_odd_g.py holds the CPU
+    side against phyngsc_tpu): the container equals the CPU's, and the card
+    decodes it through K3 with per-position trees."""
+    rng = np.random.default_rng(5)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    recs = []
+    for i in range(240):
+        m = int(rng.integers(461, 501)) if i else 500
+        qual = 33 + np.minimum(np.arange(m) * 40 // m
+                               + rng.geometric(0.3, size=m) - 1, 70)
+        recs.append(b"@odd.%d\n%s\n+\n%s\n" % (
+            i, acgt[rng.integers(0, 4, size=m)].tobytes(),
+            qual.astype(np.uint8).tobytes()))
+    data = b"".join(recs)
+    cfg = CodecConfig(subblock_input_bytes=64 << 10, records_per_substream=33,
+                      auto_substream=False)
+    blob = compress_bytes(data, cfg, 1, device=cuda)
+    assert blob == compress_bytes(data, cfg, 1, device="cpu")
+    before = kernels.LAUNCHES["k3_walk_masked/quality"]
+    assert decompress_bytes(blob, device=cuda) == data
+    assert kernels.LAUNCHES["k3_walk_masked/quality"] > before
 
 
 def test_lanes_past_2_16_words_on_card(cuda):
@@ -490,8 +583,7 @@ def test_walks_at_long_L_with_256_trees(cuda, walk):
                                   CodecConfig())
     assert tables.n_trees == 256
     w, sub, total = quality.encode_device(
-        q, lens, torch.from_numpy(tables.codes.astype(np.int64)),
-        torch.from_numpy(tables.lens.astype(np.int64)), 1, qual.size + 64)
+        q, lens, *_enc(tables.codes, tables.lens, L), 1, qual.size + 64)
     words = torch.from_numpy(
         w[: int(total)].numpy().astype(np.uint32).view(np.int32))
     luts = tables.luts(BITS)

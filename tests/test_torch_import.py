@@ -84,8 +84,9 @@ def test_wrappers_raise_off_the_cpu():
                                                device="meta"),
                             None, None, True)
     with pytest.raises(ValueError, match="CUDA"):
-        lookup.fused_lookup(sym, torch.zeros((8, 64), dtype=torch.int32,
-                                             device="meta"))
+        lookup.fused_lookup(sym, torch.zeros((8, 64), dtype=torch.int16,
+                                             device="meta"),
+                            torch.zeros(8, dtype=torch.uint8, device="meta"))
 
 
 def test_kernel_library_is_named_by_its_sources():

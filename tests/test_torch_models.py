@@ -25,6 +25,17 @@ def _t(a):
     return torch.from_numpy(np.array(a))
 
 
+def _q_tables(codes, lens, L):
+    """quality.encode_device's fused table and tree ids, as stage B builds
+    them."""
+    return tuple(_t(x) for x in quality.encode_tables(codes, lens, L))
+
+
+def _d_table(codes, lens):
+    """dna.encode_device's (1, A) fused table of a Huffman plan."""
+    return _t(lookup.fused_table_np(codes[None], lens[None]).view(np.int16))
+
+
 def _planes(n, L, seed, amb=0.01, style="ERR005195"):
     """(R, L) seq / qual planes + lens of synthetic reads, 1024 rows."""
     data = synthesize_fastq(n, read_len=L, style=style, seed=seed,
@@ -85,8 +96,9 @@ def test_quality_encode_matches(n, L, style, window):
         jnp.asarray(jt.lens[:, off:off + A]), G, cap, group, "scatter",
         np.int32(off) if window else None)
     got = quality.encode_device(
-        _t(np.asarray(jq)), _t(lens), _t(pt.codes[:, off:off + A].astype(np.int64)),
-        _t(pt.lens[:, off:off + A].astype(np.int64)), G, cap, group, off)
+        _t(np.asarray(jq)), _t(lens),
+        *_q_tables(pt.codes[:, off:off + A], pt.lens[:, off:off + A], L), G,
+        cap, group, off)
     _same(got, ref, int(ref[2]))
 
 
@@ -110,8 +122,10 @@ def test_dna_encode_matches(alphabet, group):
         jnp.asarray(seq), jnp.asarray(keep), jnp.asarray(jplan.codes_tab),
         jnp.asarray(jplan.lens_tab), jplan.mode, G, cap, group, "scatter")
     got = dna.encode_device(
-        _t(seq), _t(keep), _t(plan.codes_tab.astype(np.int64)),
-        _t(plan.lens_tab.astype(np.int64)), plan.mode, G, cap, group)
+        _t(seq), _t(keep),
+        None if plan.mode == dna.MODE_PLAIN else _d_table(plan.codes_tab,
+                                                          plan.lens_tab),
+        plan.mode, G, cap, group)
     _same(got, ref, int(ref[2]))
 
 
@@ -121,7 +135,9 @@ def test_lookup_and_grouping_match():
     tab = ((rng.integers(0, 13, size=(L, 256)) << 12)
            | rng.integers(0, 1 << 12, size=(L, 256))).astype(np.int64)
     sym = rng.integers(0, 256, size=(R, L)).astype(np.uint8)
-    fused = lookup.fused_lookup(_t(sym), _t(tab))
+    fused = lookup.fused_lookup(_t(sym),
+                                _t(tab.astype(np.uint16).view(np.int16)),
+                                _t(np.arange(L, dtype=np.uint8)))
     np.testing.assert_array_equal(fused.numpy(), tab[np.arange(L)[None, :], sym])
     codes, lens = lookup.split_fused(fused)
     lens = torch.where(lens > 8, 8, lens)  # 4 codes of <= 8 bits fit 32
@@ -201,8 +217,8 @@ def test_quality_encode_variable_and_long_reads_match(n, L, variable, G_):
     pt = convert.quality_tables(jt)
     got = quality.encode_device(
         _t(np.asarray(jq)), _t(lens),
-        _t(pt.codes[:, off:off + A].astype(np.int64)),
-        _t(pt.lens[:, off:off + A].astype(np.int64)), G_, cap, group, off)
+        *_q_tables(pt.codes[:, off:off + A], pt.lens[:, off:off + A],
+                   qual.shape[1]), G_, cap, group, off)
     _same(got, ref, int(ref[2]))
 
 
@@ -230,9 +246,9 @@ def test_dna_huffman_encode_windowed_matches(alphabet):
         "scatter", np.int32(off))
     plan = convert.dna_plan(jplan)
     got = dna.encode_device(
-        _t(seq), _t(keep), _t(plan.codes_tab[off:off + A].astype(np.int64)),
-        _t(plan.lens_tab[off:off + A].astype(np.int64)), plan.mode, G, cap,
-        group, off)
+        _t(seq), _t(keep),
+        _d_table(plan.codes_tab[off:off + A], plan.lens_tab[off:off + A]),
+        plan.mode, G, cap, group, off)
     _same(got, ref, int(ref[2]))
 
 

@@ -416,8 +416,8 @@ def test_quality_decode_at_long_L_with_256_trees(walk):
     qual, lens, tables = _long_read_case(1, 8)
     w, sub, total = quality.encode_device(
         torch.from_numpy(qual), lens,
-        torch.from_numpy(tables.codes.astype(np.int64)),
-        torch.from_numpy(tables.lens.astype(np.int64)), 1, qual.size + 64)
+        *(torch.from_numpy(t) for t in quality.encode_tables(
+            tables.codes, tables.lens, qual.shape[1])), 1, qual.size + 64)
     words = w[: int(total)].to(torch.int32)
     plane = bitpack.dense_words(
         words, torch.from_numpy(bitpack.lane_table(sub.numpy())),
