@@ -34,7 +34,9 @@ Phases (any failure exits non-zero):
      lanes hold more than 2^16 words and 65,532 bp reads, each
      byte-identical, with
      every kernel variant launched, K5 twice per decoded sub-block, and no
-     plain version run on a CUDA tensor;
+     plain version run on a CUDA tensor; each corpus's wire modes are
+     printed (the sub-blocks' upload packing of DNA and quality, and their
+     decode fetch: qual8, restored symbols at w bits, or raw planes);
   4. the file entry points: compress_file -> decompress_file of the
      ERR005195 corpus on disk, byte-identical, with every kernel of the path
      launched in that run, then `python3 -m phyngsc_tpu_torch verify FILE
@@ -48,7 +50,10 @@ Phases (any failure exits non-zero):
      (gloo metadata), compress and --decompress of the ERR file, and the
      single-process decompress_file of their container; then one more ERR
      round trip under PHYNGSC_TIMING=1, whose stage split and h2d/d2h byte
-     counts are printed;
+     counts are printed and held to the packed wire's limits (at the
+     default 264 MB, scaled above it: compress h2d <= 88 MB and d2h <=
+     65 MB, decompress d2h <= 100 MB, decompress h2d <= 1.05x the
+     container);
   5. the committed golden containers tiny_v1 / tiny_v2 / titles_v3 /
      longread_v4 decode to their inputs, and the titles_v3 input re-encodes
      to phyngsc_tpu's bytes (by SHA-256);
@@ -63,6 +68,7 @@ phyngsc_tpu.
 from __future__ import annotations
 
 import argparse
+import collections
 import hashlib
 import json
 import logging
@@ -84,7 +90,7 @@ from phyngsc_tpu_torch import (CodecConfig, host_runtime, kernels,  # noqa: E402
                                synthesize_fastq)
 from phyngsc_tpu_torch.models import dna, quality  # noqa: E402
 from phyngsc_tpu_torch.ops import (bitpack, bitpack_host, histogram,  # noqa: E402
-                                   lookup)
+                                   lookup, transfer)
 from phyngsc_tpu_torch.pipeline import compress, subblock  # noqa: E402
 from phyngsc_tpu_torch.pipeline.decompress import (  # noqa: E402
     decompress_bytes, decompress_file)
@@ -127,6 +133,16 @@ SCALAR_OPS_PER_S = 67e12
 #: one step of a walk's dependent chain: one shared-memory load, about 30
 #: cycles, at the H100's 1,980 MHz boost clock
 STEP_S = 30 / 1.98e9
+#: the packed wire's limits on the ERR005195 corpus at the default size
+#: (264 MB, 35 sub-blocks), in bytes: compress h2d and d2h, decompress d2h;
+#: decompress h2d is held to 1.05x the container
+ERR_WIRE_LIMITS = {"compress h2d": 88e6, "compress d2h": 65e6,
+                   "decompress d2h": 100e6}
+ERR_DEFAULT_BYTES = 264e6
+SEQ_MODES = {transfer.SEQ_RAW: "raw", transfer.SEQ_2BIT: "2-bit",
+             transfer.SEQ_3BIT: "3-bit",
+             transfer.SEQ_2BIT_EXC: "2-bit + exceptions"}
+QUAL_MODES = {transfer.QUAL_RAW: "raw", transfer.QUAL_6BIT: "6-bit"}
 #: the kernels (and K3 variants) that the ERR005195 36 bp path launches
 ERR_PATH = ("k1_histogram", "k2_walk_uniform", "k3_walk_masked/plain2",
             "k4_lookup", "k5_densify")
@@ -629,6 +645,49 @@ def phase_kernels(dev) -> dict:
     return cases
 
 
+class WireModes:
+    """While entered, notes the wire mode of every sub-block the pipeline
+    packs or fetches: ops/transfer's sequence and quality upload packing,
+    and the decode fetch (subblock.decode_stage_a's out_meta). counts():
+    how many sub-blocks took each."""
+
+    def __enter__(self):
+        self.seen = []  # appended from the pipelines' pool threads
+        self.saved = (transfer.pack_seq_np, transfer.pack_qual_np,
+                      subblock.decode_stage_a)
+        pack_seq, pack_qual, stage_a = self.saved
+
+        def seq(plane):
+            mode, words = pack_seq(plane)
+            self.seen.append(f"seq {SEQ_MODES[mode]}")
+            return mode, words
+
+        def qual(plane):
+            mode, words = pack_qual(plane)
+            self.seen.append(f"qual {QUAL_MODES[mode]}")
+            return mode, words
+
+        def decode(*args, **kwargs):
+            st = stage_a(*args, **kwargs)
+            m = st.out_meta
+            self.seen.append(
+                "fetch raw planes" if m is None else
+                f"fetch {'qual8' if m.qual8 else 'restored'}, index w={m.w}, "
+                f"quality {'6' if m.q6 else '8'}-bit")
+            return st
+
+        transfer.pack_seq_np, transfer.pack_qual_np = seq, qual
+        subblock.decode_stage_a = decode
+        return self
+
+    def __exit__(self, *exc):
+        (transfer.pack_seq_np, transfer.pack_qual_np,
+         subblock.decode_stage_a) = self.saved
+
+    def counts(self) -> dict:
+        return dict(sorted(collections.Counter(self.seen).items()))
+
+
 def round_trip(data: bytes, dev, what: str, shards: int = 1) -> dict:
     """compress_bytes -> decompress_bytes on the card, byte-identical, with
     K5 launched twice (quality and DNA planes) per shard per decoded
@@ -637,16 +696,17 @@ def round_trip(data: bytes, dev, what: str, shards: int = 1) -> dict:
     cfg = CodecConfig(data_shards=shards)
     device = dev if shards == 1 else [dev] * shards
     stats = []
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    comp = compress.compress_bytes(data, cfg, 1, device=device,
-                                   stats_out=stats)
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    k5_before = kernels.LAUNCHES["k5_densify"]
-    back = decompress_bytes(comp, cfg, device=device)
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
+    with WireModes() as modes:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        comp = compress.compress_bytes(data, cfg, 1, device=device,
+                                       stats_out=stats)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        k5_before = kernels.LAUNCHES["k5_densify"]
+        back = decompress_bytes(comp, cfg, device=device)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
     require(back == data, f"{what}: round trip is not byte-identical")
     n_sub = sum(s.n_subblocks for s in stats)
     k5 = kernels.LAUNCHES["k5_densify"] - k5_before
@@ -660,6 +720,7 @@ def round_trip(data: bytes, dev, what: str, shards: int = 1) -> dict:
           f"MB/s ({t1 - t0:.3f} s), decompress {res['decompress_mbps']:.2f} "
           f"MB/s ({t2 - t1:.3f} s), byte-identical, {n_sub} sub-blocks, "
           f"{shards} shard(s), {k5} K5 launches", flush=True)
+    print(f"wire modes {what}: {json.dumps(modes.counts())}", flush=True)
     return res
 
 
@@ -859,7 +920,17 @@ def phase_sharded(dev, err: bytes, err_result: dict) -> dict:
             print(f"stage split: {line}", flush=True)
     print(f"stage split bytes: compress h2d {int(enc['h2d_bytes'])} d2h "
           f"{int(enc['d2h_bytes'])}, decompress h2d {int(dec['h2d_bytes'])} "
-          f"d2h {int(dec['d2h_bytes'])}", flush=True)
+          f"d2h {int(dec['d2h_bytes'])}; container {len(blob)} B, decompress "
+          f"h2d / container {dec['h2d_bytes'] / len(blob):.4f}", flush=True)
+    scale = max(1.0, len(err) / ERR_DEFAULT_BYTES)
+    got = {"compress h2d": enc["h2d_bytes"], "compress d2h": enc["d2h_bytes"],
+           "decompress d2h": dec["d2h_bytes"]}
+    for name, limit in ERR_WIRE_LIMITS.items():
+        require(got[name] <= limit * scale, f"ERR {name}: {int(got[name])} B "
+                f"over the packed wire's {int(limit * scale)}")
+    require(dec["h2d_bytes"] <= 1.05 * len(blob),
+            f"ERR decompress h2d: {int(dec['h2d_bytes'])} B over 1.05x the "
+            f"{len(blob)} B container")
     return launches
 
 

@@ -54,6 +54,18 @@ def _table(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(a.astype(np.int64)).to(device)
 
 
+#: ACGT, AMB_CHAR and NUC_INDEX as one int64 host array, the decode's
+#: tables; the decode uploads it with its other inputs and hands the
+#: slices (device_tables) to decode_plain_walk, restore_ambiguity and
+#: delta_untranslate, which otherwise upload their own
+DECODE_TABLES = np.concatenate([ACGT, AMB_CHAR, NUC_INDEX]).astype(np.int64)
+
+
+def device_tables(t: torch.Tensor) -> dict:
+    """DECODE_TABLES on a device -> its tables by keyword."""
+    return {"acgt": t[:4], "amb_char": t[4:21], "nuc_index": t[21:]}
+
+
 # ---------------------------------------------------------------------------
 # Ambiguity transfer
 # ---------------------------------------------------------------------------
@@ -80,14 +92,17 @@ def transfer_ambiguity(seq: torch.Tensor, qual: torch.Tensor,
 
 
 def restore_ambiguity(dna: torch.Tensor, qual: torch.Tensor,
-                      lens: torch.Tensor):
+                      lens: torch.Tensor, amb_char=None):
     """Inverse transfer: quality symbols >= 128 expand back to (IUPAC char,
-    original quality); dna holds the kept symbols at their positions."""
+    original quality); dna holds the kept symbols at their positions.
+    amb_char: AMB_CHAR on the device (int64), else uploaded here."""
     q = qual.long()
     moved = q >= 128
     code = ((q - 128 + 16) >> 3).clamp(0, 16)
     orig_q = (q - 128 + 16) - (code << 3) + 33
-    amb_ch = _table(AMB_CHAR, dna.device)[code]
+    if amb_char is None:
+        amb_char = _table(AMB_CHAR, dna.device)
+    amb_ch = amb_char[code]
     seq = torch.where(moved, amb_ch, dna.long())
     qual_out = torch.where(moved, orig_q, q)
     v = valid_mask(lens, qual.shape[1])
@@ -135,12 +150,16 @@ def delta_translate(seq: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
     return torch.where(valid_mask(lens, L), out, 0).to(torch.uint8)
 
 
-def delta_untranslate(seq: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
+def delta_untranslate(seq: torch.Tensor, lens: torch.Tensor,
+                      nuc_index=None) -> torch.Tensor:
     """Nucleotides -> colour digits, the exact inverse of delta_translate:
-    colour n = DELTA_COLOR[nuc n-1, nuc n], which is their XOR."""
+    colour n = DELTA_COLOR[nuc n-1, nuc n], which is their XOR. nuc_index:
+    NUC_INDEX on the device (int64), else uploaded here."""
     L = seq.shape[1]
     s = seq.long()
-    idx = _table(NUC_INDEX, seq.device)[s].clamp(0, 3)
+    if nuc_index is None:
+        nuc_index = _table(NUC_INDEX, seq.device)
+    idx = nuc_index[s].clamp(0, 3)
     colors = (idx[:, :-1] ^ idx[:, 1:]) + ord("0")
     out = torch.cat([s[:, :1], colors], dim=1)
     return torch.where(valid_mask(lens, L), out, 0).to(torch.uint8)
@@ -222,27 +241,29 @@ def decode_huffman_walk(plane: torch.Tensor, keep: torch.Tensor,
     """Huffman DNA decode on K3 (port of decode_huffman_walk): kept slots
     (record, position) consume the lane's next symbol. plane (Wmax, Sp)
     from bitpack.dense_words, keep (S*G, L) bool, lut the host
-    (2^lut_bits,) int32 LUT (numpy or a CPU tensor). Returns (S*G, L) uint8
-    (0 where not kept)."""
+    (2^lut_bits,) int32 LUT (numpy or a CPU tensor) or a bitpack.WalkLuts
+    of it on the device. Returns (S*G, L) uint8 (0 where not kept)."""
     R, L = keep.shape
     S = R // records_per_substream
     tree = torch.zeros(1, dtype=torch.int32, device=keep.device)
-    luts = bitpack.walk_luts(np.asarray(lut)[None, :], lut_bits, plane.device)
+    luts = bitpack.walk_luts(lut, lut_bits, plane.device)
     syms = bitpack.walk_masked(plane, keep.reshape(S, -1), luts, tree,
                                plain2=False)
     return syms.reshape(R, L)
 
 
 def decode_plain_walk(plane: torch.Tensor, keep: torch.Tensor,
-                      records_per_substream: int) -> torch.Tensor:
+                      records_per_substream: int, acgt=None) -> torch.Tensor:
     """2-bit plain DNA decode on K3 (plain2; port of decode_plain_walk).
-    Returns (S*G, L) uint8 bases (0 where not kept)."""
+    acgt: ACGT on the device (int64), else uploaded here. Returns (S*G, L)
+    uint8 bases (0 where not kept)."""
     R, L = keep.shape
     S = R // records_per_substream
     syms = bitpack.walk_masked(plane, keep.reshape(S, -1), None, None,
                                plain2=True).reshape(R, L)
-    return torch.where(keep, _table(ACGT, keep.device)[syms.long()], 0).to(
-        torch.uint8)
+    if acgt is None:
+        acgt = _table(ACGT, keep.device)
+    return torch.where(keep, acgt[syms.long()], 0).to(torch.uint8)
 
 
 # ---------------------------------------------------------------------------

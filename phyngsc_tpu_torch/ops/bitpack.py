@@ -11,9 +11,9 @@ tensors take the plain versions, the walks stepping all lanes in lockstep,
 one step per loop iteration. The walks take their LUTs as WalkLuts
 (walk_luts): the full int32 tables, which the plain versions read, and, for
 CUDA tensors, the 16-bit two-level tables that the kernels stage in shared
-memory (two_level_luts), built on the host from the host LUTs. Words travel
-as int32 tensors holding the uint32 bits, and are widened to int64 for bit
-work.
+memory (two_level_luts), built on the host from the host LUTs
+(walk_tables). Words travel as int32 tensors holding the uint32 bits, and
+are widened to int64 for bit work.
 """
 
 from __future__ import annotations
@@ -254,18 +254,37 @@ class WalkLuts:
         return int(self.full.shape[0])
 
 
-def walk_luts(luts, lut_bits: int, device, n_ids: int = 1) -> WalkLuts:
-    """Host (n_trees, 2^lut_bits) int32 LUTs -> WalkLuts on `device`: the
-    full tables and, on a CUDA device, their two-level form (two_level_luts)
-    in the shared memory that a walk block leaves beside n_ids tree ids
-    (K2: Lt, K3: kernels.masked_ids(L); kernels.table_budget), built on the
-    host and uploaded, so that nothing waits on the device."""
+def walk_tables(luts, lut_bits: int, cuda: bool, n_ids: int = 1) -> tuple:
+    """The host half of walk_luts: (full, packed, k, n_primary). full: the
+    (n_trees, 2^lut_bits) int32 LUTs (a single (2^lut_bits,) LUT is one
+    tree); for a CUDA device, packed is their two-level form
+    (two_level_luts) as int16 holding the uint16 entries, sized for the
+    shared memory that a walk block leaves beside n_ids tree ids (K2: Lt,
+    K3: kernels.masked_ids(L); kernels.table_budget), with its k and
+    n_primary; else (None, 0, 0)."""
     full = np.ascontiguousarray(luts, dtype=np.int32)
+    if full.ndim == 1:
+        full = full[None, :]
+    if not cuda:
+        return full, None, 0, 0
+    table, k, n_primary = two_level_luts(full, lut_bits,
+                                         kernels.table_budget(n_ids))
+    return full, table.view(np.int16), k, n_primary
+
+
+def walk_luts(luts, lut_bits: int, device, n_ids: int = 1) -> WalkLuts:
+    """Host LUTs -> WalkLuts on `device`: walk_tables' tables, built on
+    the host and uploaded, so that nothing waits on the device. A WalkLuts
+    (the decode's, expanded on the device from its one upload) is taken as
+    it is."""
+    if isinstance(luts, WalkLuts):
+        return luts
+    full, packed, k, n_primary = walk_tables(
+        luts, lut_bits, torch.device(device).type == "cuda", n_ids)
     wl = WalkLuts(torch.from_numpy(full).to(device), lut_bits)
-    if wl.full.is_cuda:
-        table, wl.k, wl.n_primary = two_level_luts(
-            full, lut_bits, kernels.table_budget(n_ids))
-        wl.packed = torch.from_numpy(table.view(np.int16)).to(device)
+    if packed is not None:
+        wl.packed = torch.from_numpy(packed).to(device)
+        wl.k, wl.n_primary = k, n_primary
     return wl
 
 

@@ -5,23 +5,30 @@ One sub-block of records -> self-contained bytes, section layout
     [meta][title][quality][dna]   (each u32-length-prefixed)
 
 byte-identical to phyngsc_tpu. Encode: stage_a gathers the planes on the
-host, uploads the raw (Rp, L) seq/qual planes and runs the ambiguity
-transfer (after the SOLiD colour-space translation, for delta sub-blocks)
-and both histograms (K1) on the device; stage_b builds and fuses the code
-tables on the host, uploads them in one copy and packs both streams on the
-device (code lookups on K4); stage_c fetches the words and assembles the
-sections. Decode: _decode_parse is host code; decode_stage_a uploads the
-linear word streams and host-built LUTs, lays each stream out as its (Wmax,
-Sp) word plane (K5), decodes quality (K2 for uniform lengths, K3 with
-per-position trees for variable lengths) then DNA (K3) from the planes,
-restores the ambiguity and undoes the delta translation on the device;
-decode_stage_b fetches the restored planes and reassembles FASTQ text.
-Every read length the container holds (up to 65535) is taken. With a
+host, packs the R live rows of the seq/qual planes (ops/transfer) and
+uploads the words in one copy; the device unpacks them into the (Rp, L)
+planes and runs the ambiguity transfer (after the SOLiD colour-space
+translation, for delta sub-blocks) and both histograms (K1); stage_b
+builds and fuses the code tables on the host, uploads them in one copy and
+packs both streams on the device (code lookups on K4) into one blob of
+32-bit words; stage_c fetches it and assembles the sections. Decode:
+_decode_parse is host code; decode_stage_a uploads the sub-block's
+inputs in one copy (the linear word streams, their lane tables, the walk
+tables as runs, the lengths when they vary, the output alphabet's index
+table), lays each stream out as its (Wmax, Sp) word plane (K5), decodes
+quality (K2 for uniform lengths, K3 with per-position trees for variable
+lengths) then DNA (K3) from the planes, and packs the live rows for the
+fetch: kept-symbol indices and raw qualities (qual8 mode), or restored
+symbol indices and qualities in 6 or 8 bits; decode_stage_b fetches them,
+unpacks them on the host and reassembles FASTQ text. Delta sub-blocks and
+alphabets past 32 symbols fetch the restored (2, Rp, L) planes. Every read
+length the container holds (up to 65535) is taken. With a
 parallel.mesh.ShardedSubblockCodec each stage runs per shard: stage A and
-B on each shard's Rp / n rows on its device (the counts summed), the
-decode on each shard's contiguous range of whole lanes (decode_lanes).
-Under PHYNGSC_TIMING the stages add their seconds and the host<->device
-bytes to TIMING, with phyngsc_tpu's labels.
+B on each shard's Rp / n rows on its device (the raw planes uploaded, the
+counts summed), the decode on each shard's contiguous range of whole lanes
+(decode_lanes; the raw planes fetched). Under PHYNGSC_TIMING the stages
+add their seconds and the host<->device bytes to TIMING, with
+phyngsc_tpu's labels.
 """
 
 from __future__ import annotations
@@ -32,13 +39,14 @@ import time
 import numpy as np
 import torch
 
+from phyngsc_tpu_torch import kernels
 from phyngsc_tpu_torch.config import CodecConfig
 from phyngsc_tpu_torch.device import on_device
 from phyngsc_tpu_torch.utils.bitio import BitReader, BitWriter
 from phyngsc_tpu_torch.utils.fastq import FastqFormatError, RecordIndex
 from phyngsc_tpu_torch.utils.shapes import bucket_length, bucket_records
 from phyngsc_tpu_torch.models import dna, quality, title
-from phyngsc_tpu_torch.ops import bitpack, lookup
+from phyngsc_tpu_torch.ops import bitpack, lookup, transfer
 from phyngsc_tpu_torch.ops.bitpack_host import bytes_to_words, words_to_bytes
 
 FLAG_VARIABLE_LENGTH = 1
@@ -202,6 +210,29 @@ def _upload_rows(plane: np.ndarray, lo: int, rows: int,
     return out
 
 
+def _upload_packed(seq_np: np.ndarray, qual_np: np.ndarray,
+                   lens_np: np.ndarray, Rp: int, device) -> tuple:
+    """The host (R, L) planes packed (ops/transfer) and uploaded in one copy
+    [seq words | qual words], unpacked into rows 0 .. R - 1 of zeroed
+    (Rp, L) planes, the columns past each record's length zeroed again (the
+    packer writes 'A' / chr(33) there): the raw planes exactly. Returns
+    (the sequence words' mode, the (2, Rp, L) uint8 seq/qual planes, the
+    (Rp,) lengths) on `device`."""
+    R, L = seq_np.shape
+    s_mode, s_words = transfer.pack_seq_np(seq_np)
+    q_mode, q_words = transfer.pack_qual_np(qual_np)
+    words = _upload_words(np.concatenate([s_words, q_words]), device)
+    lens = _record_lens(lens_np, Rp, device)
+    planes = torch.zeros((2, Rp, L), dtype=torch.uint8, device=device)
+    valid = quality.valid_mask(lens[:R], L)
+    ns = s_words.shape[0]
+    planes[0, :R] = torch.where(
+        valid, transfer.unpack_seq(words[:ns], s_mode, R, L), 0)
+    planes[1, :R] = torch.where(
+        valid, transfer.unpack_qual(words[ns:], q_mode, R, L), 0)
+    return s_mode, planes, lens
+
+
 def analyze_rows(seq: torch.Tensor, qual: torch.Tensor, lens: torch.Tensor,
                  small: bool, live: int):
     """Ambiguity transfer of (rows, L) planes on one device and both
@@ -217,9 +248,10 @@ def encode_rows(qual_t, keep, seq, lens, tables, G: int, q_cap: int,
                 d_cap: int, mode: int, q_group: int, d_group: int,
                 q_off: int, d_off: int) -> torch.Tensor:
     """Pack both streams of (rows, L) planes on one device with the fused
-    tables `tables` there (quality table, tree ids[, DNA table]): one int64
-    blob [q_words (q_cap) | d_words (d_cap) | q_sub (S) | d_sub (S) |
-    q_total | d_total], S = rows / G."""
+    tables `tables` there (quality table, tree ids[, DNA table]): one blob
+    of 32-bit words (int32 holding the uint32 bits, as phyngsc_tpu's
+    _encode_all fetches them) [q_words (q_cap) | d_words (d_cap) | q_sub
+    (S) | d_sub (S) | q_total | d_total], S = rows / G."""
     q_tab, q_tree, *d_tab = tables
     q_words, q_sub, q_total = quality.encode_device(
         qual_t, lens, q_tab, q_tree, G, q_cap, q_group, q_off)
@@ -227,7 +259,7 @@ def encode_rows(qual_t, keep, seq, lens, tables, G: int, q_cap: int,
         seq, keep, d_tab[0] if d_tab else None, mode, G, d_cap, d_group,
         d_off)
     return torch.cat([q_words, d_words, q_sub, d_sub, q_total.view(1),
-                      d_total.view(1)])
+                      d_total.view(1)]).to(torch.int32)
 
 
 class _StageA:
@@ -241,7 +273,7 @@ class _StageA:
 
 
 class _StageB:
-    """Tables built, stream packing dispatched: one int64 blob a shard."""
+    """Tables built, stream packing dispatched: one blob a shard."""
 
     __slots__ = ("a", "q_tables", "d_plan", "t_enc", "blobs", "blob_layout")
 
@@ -294,7 +326,6 @@ def stage_a(buf: np.ndarray, idx: RecordIndex, cfg: CodecConfig,
 
         span = buf[int(idx.title_start[0]) : int(idx.qual_end[-1]) + 1]
         st.crc = zlib.crc32(np.ascontiguousarray(span))
-    small = int(seq_np.max(initial=0)) < 128
 
     def upload(dev, lo, rows):
         """Rows lo .. lo + rows - 1: the raw planes (zero padding rows) and
@@ -313,13 +344,18 @@ def stage_a(buf: np.ndarray, idx: RecordIndex, cfg: CodecConfig,
                 parts.append(upload(dev, lo, hi - lo))
         st.seq, qual, st.lens = (list(x) for x in zip(*parts))
         st.counts_blob, st.qual_t, st.keep = codec.analyze(
-            st.seq, qual, st.lens, small)
+            st.seq, qual, st.lens, int(seq_np.max(initial=0)) < 128)
     else:
-        st.seq, qual, st.lens = upload(device, 0, Rp)
+        s_mode, planes, st.lens = _upload_packed(seq_np, qual_np, lens_np,
+                                                 Rp, device)
+        st.seq, qual = planes[0], planes[1]
+        if st.is_delta:
+            st.seq = dna.delta_translate(st.seq, st.lens)
         # the histograms read the R live rows only (contiguous views): the
         # padding rows' masks are zero, so the counts are the same
         st.qual_t, st.keep, q_counts, d_counts = analyze_rows(
-            st.seq, qual, st.lens, small, R)
+            st.seq, qual, st.lens, transfer.seq_alpha_small(s_mode, seq_np),
+            R)
         st.counts_blob = torch.cat([q_counts.reshape(-1),
                                     d_counts.reshape(-1)])
     st.n_q_counts = min(L, quality.MAX_TREES) * quality.ALPHABET
@@ -391,7 +427,8 @@ def stage_b(a: _StageA, cfg: CodecConfig, codec=None) -> _StageB:
 def stage_c(b: _StageB, cfg: CodecConfig) -> bytes:
     a = b.a
     t0 = time.perf_counter() if TIMING is not None else 0.0
-    blobs = [_fetch(x) for x in b.blobs]  # the stage-B fetch, one a shard
+    # the stage-B fetch, one a shard
+    blobs = [_fetch(x).view(np.uint32) for x in b.blobs]
     _tick("c.fetch", t0)
     nqw, ndw, S = b.blob_layout
     # substreams never cross a shard: the tables concatenate and each
@@ -469,7 +506,8 @@ class _DParsed:
 
     __slots__ = ("R", "Lt", "L", "Rp", "G", "variable", "is_delta", "crc",
                  "lens_np", "titles_np", "tlens_np", "q_tables", "q_sub",
-                 "q_words", "d_plan", "d_sub", "d_words")
+                 "q_words", "d_plan", "d_sub", "d_words", "out_alpha",
+                 "d_alpha", "q6")
 
 
 def _decode_parse(data: bytes, cfg: CodecConfig, executor=None) -> _DParsed:
@@ -543,77 +581,269 @@ def _decode_parse(data: bytes, cfg: CodecConfig, executor=None) -> _DParsed:
     dbr.align()
     p.q_words = bytes_to_words(br.get_bytes(4 * q_total))
     p.d_words = bytes_to_words(dbr.get_bytes(4 * d_total))
+    _output_alphabets(p)
     return p
 
 
-class _DStage:
-    """Decode stage A result: the restored (2, rows, L) planes of each
-    shard, in row order, pending fetch."""
+def _output_alphabets(p: _DParsed) -> None:
+    """p.out_alpha, p.d_alpha and p.q6 of the packed decode fetch (copied
+    from phyngsc_tpu/pipeline/subblock.py:886-923)."""
+    R = p.R
+    # restored-output alphabet for the packed D2H fetch: provably complete —
+    # kept positions hold DNA-plan symbols (plain mode only fires on pure
+    # ACGT, dna.plan:217), transferred positions restore to AMB_CHAR chars
+    # derivable from the quality tables' >=128 symbols
+    if p.d_plan.mode == dna.MODE_PLAIN:
+        dsyms = {65, 67, 71, 84}
+    else:
+        dsyms = set(np.flatnonzero(p.d_plan.lens_tab).tolist())
+        if p.d_plan.singleton >= 0:
+            dsyms.add(int(p.d_plan.singleton))
+    qpresent = set(np.flatnonzero(
+        np.count_nonzero(p.q_tables.lens, axis=0)).tolist())
+    qpresent |= {int(s) for s in p.q_tables.singletons if s >= 0}
+    restored_q = [33]
+    rest_chars = set()
+    for s in qpresent:
+        if s >= 128:
+            code = min(max((s - 128 + 16) >> 3, 0), 16)
+            rest_chars.add(int(dna.AMB_CHAR[code]))
+            restored_q.append((s - 128 + 16) - (code << 3) + 33)
+        else:
+            restored_q.append(s)
+    p.q6 = max(restored_q) <= 96
+    # 32 covers ACGT + the full 15-char IUPAC ambiguity set with room to
+    # spare; beyond that (exotic alphabets) the raw u8 plane is shipped
+    alpha = sorted(dsyms | rest_chars)
+    p.out_alpha = (np.array(alpha, np.uint8)
+                   if 0 < len(alpha) <= 32 and R else None)
+    # qual8 fetch ships KEPT symbols only, so its index plane uses the DNA
+    # alphabet's width (2-3 bits typical) — not the restored alphabet's.
+    # It only pays off when transfers exist (rest_chars nonempty): a rich
+    # kept alphabet WITHOUT transfers costs the same wire either way, and
+    # the small mode's device restore is then an identity
+    da = sorted(dsyms)
+    p.d_alpha = (np.array(da, np.uint8)
+                 if (p.out_alpha is not None and rest_chars
+                     and 0 < len(da) <= 32) else None)
 
-    __slots__ = ("R", "lens_np", "titles_np", "tlens_np", "blobs", "crc")
+
+# _qual8_mode and _out_width are copied from phyngsc_tpu/pipeline/
+# subblock.py:926-930 and :1127-1132.
+
+def _qual8_mode(p: _DParsed) -> bool:
+    """Rich restored alphabets (> 8 symbols = IUPAC-bearing sub-blocks)
+    ship pre-restore planes and restore on host (_decode_tail qual8)."""
+    return bool(p.out_alpha is not None and not p.is_delta
+                and p.out_alpha.shape[0] > 8 and p.d_alpha is not None)
+
+
+def _out_width(n_alpha: int) -> int:
+    if n_alpha <= 4:
+        return 2
+    if n_alpha <= 8:
+        return 3
+    return 4 if n_alpha <= 16 else 5
+
+
+# _OUT_PER, _out_fetch_words and _lane_unpack_np are copied from
+# phyngsc_tpu/pipeline/subblock.py:288-313.
+
+#: lane widths -> values per uint32 word (same layout as ops/transfer)
+_OUT_PER = {2: 16, 3: 10, 4: 8, 5: 6, 6: 5, 8: 4}
+
+
+def _out_fetch_words(n: int, w: int, q6: bool) -> tuple:
+    per_s = _OUT_PER[w]
+    per_q = 5 if q6 else 4
+    return (n + per_s - 1) // per_s, (n + per_q - 1) // per_q
+
+
+def _lane_unpack_np(words: np.ndarray, w: int, n: int) -> np.ndarray:
+    per = _OUT_PER[w]
+    shifts = (32 - w * (np.arange(per) + 1)).astype(np.uint32)
+    lanes = (words[:, None] >> shifts[None, :]) & np.uint32((1 << w) - 1)
+    return lanes.reshape(-1)[:n]
+
+
+class _OutMeta:
+    """How a non-delta sub-block's live rows are packed for the fetch
+    (phyngsc_tpu's _pack_out / _decode_tail): alpha, the alphabet indexed
+    (p.d_alpha in qual8 mode, else p.out_alpha); w, the index width; qual8:
+    kept symbols and raw 8-bit qual_t, the ambiguity restored on the host;
+    else restored symbols and q - 33 in 6 bits when q6, else 8 bits."""
+
+    __slots__ = ("alpha", "w", "q6", "qual8")
+
+    def __init__(self, p: _DParsed):
+        self.qual8 = _qual8_mode(p)
+        self.alpha = p.d_alpha if self.qual8 else p.out_alpha
+        self.w = _out_width(self.alpha.shape[0])
+        self.q6 = bool(p.q6) and not self.qual8
+
+    def index_table(self) -> np.ndarray:
+        """(256,) uint8 byte -> alphabet index (0 for other bytes), for one
+        gather on the device."""
+        tab = np.zeros(256, np.uint8)
+        tab[self.alpha] = np.arange(self.alpha.shape[0])
+        return tab
+
+
+def _out_meta(p: _DParsed):
+    """_OutMeta of a sub-block whose decode fetches packed rows, else None
+    (delta sub-blocks, alphabets past 32 symbols, no records)."""
+    if p.out_alpha is None or p.is_delta:
+        return None
+    return _OutMeta(p)
+
+
+def _pack_out(seq: torch.Tensor, qual: torch.Tensor, index_tab: torch.Tensor,
+              meta: _OutMeta) -> torch.Tensor:
+    """(rows, L) uint8 symbols and qualities -> the fetch's int32 words
+    [seq: w-bit alphabet indices | qual: q - 33 (0 below 33) in 6 bits when
+    meta.q6, else the bytes], as phyngsc_tpu's _pack_out lays them out; the
+    byte -> index map is one gather through index_tab."""
+    q = qual.reshape(-1).long()
+    if meta.q6:
+        qw = transfer.pack_lanes(torch.where(q < 33, 0, q - 33), 6)
+    else:
+        qw = transfer.pack_lanes(q, 8)
+    sw = transfer.pack_lanes(index_tab[seq.reshape(-1).long()], meta.w)
+    return torch.cat([sw, qw])
+
+
+class _DStage:
+    """Decode stage A result, pending fetch: the packed live rows (one
+    blob; out_meta an _OutMeta), or the restored (2, rows, L) planes of
+    each shard in row order (out_meta None)."""
+
+    __slots__ = ("R", "L", "lens_np", "titles_np", "tlens_np", "blobs", "crc",
+                 "out_meta")
+
+
+#: an absent piece of the decode's upload
+_NONE = np.zeros(0, np.uint8)
+
+
+def _runs(table) -> np.ndarray:
+    """A walk table as the decode uploads it (transfer.table_runs_np)."""
+    return _NONE if table is None else transfer.table_runs_np(table)
+
+
+def _walk_luts_up(tabs: tuple, full_runs: torch.Tensor,
+                  packed_runs: torch.Tensor,
+                  lut_bits: int) -> bitpack.WalkLuts:
+    """bitpack.walk_tables' host tables (tabs) -> the WalkLuts of the same
+    tables on the device, expanded there from their uploaded runs."""
+    full, packed, k, n_primary = tabs
+    wl = bitpack.WalkLuts(
+        transfer.expand_runs(full_runs, full.size).view(full.shape), lut_bits)
+    if packed is not None:
+        wl.packed = transfer.expand_runs(packed_runs, packed.size, torch.int16)
+        wl.k, wl.n_primary = k, n_primary
+    return wl
 
 
 def decode_lanes(p: _DParsed, cfg: CodecConfig, device, s0: int, s1: int,
-                 q_luts: np.ndarray) -> torch.Tensor:
+                 q_luts: np.ndarray, out_meta=None) -> torch.Tensor:
     """Lanes (substreams) s0 .. s1 - 1 of a parsed sub-block, records
     s0*G .. s1*G - 1, decoded on `device`: both word planes (K5) -> quality
     walk (K2, or K3 for variable lengths) -> keep mask -> DNA walk (K3) ->
     ambiguity restore -> delta untranslate, as phyngsc_tpu's
     _decode_walk_fused under PHYNGSC_DENSIFY=dma. q_luts: the host quality
-    LUTs. Returns the (2, (s1 - s0)*G, L) uint8 seq/qual planes there."""
+    LUTs. Every input goes up in one copy: both streams' words from the
+    first word of lane s0 and their lane tables (bitpack.lane_table), the
+    walk tables (bitpack.walk_tables) as runs, the live records' lengths
+    when they vary, dna.DECODE_TABLES and, with out_meta, its index table.
+    Returns the (2, (s1 - s0)*G, L) uint8 seq/qual planes there, or with
+    out_meta (an _OutMeta) the live rows packed by _pack_out, the
+    ambiguity left to the host in qual8 mode."""
     G, bits = p.G, cfg.max_code_len
     q_sub, d_sub = p.q_sub[s0:s1], p.d_sub[s0:s1]
     q_wmax, sp = bitpack.plane_geometry(q_sub, G, p.L, bits)
     d_wmax, _ = bitpack.plane_geometry(d_sub, G, p.L, bits)
-    lens = _record_lens(p.lens_np, (s1 - s0) * G, device, s0 * G)
+    rows = (s1 - s0) * G
+    live = min(max(p.R - s0 * G, 0), rows)
+    cuda = torch.device(device).type == "cuda"
+    q_tabs = bitpack.walk_tables(
+        q_luts, bits, cuda, kernels.masked_ids(p.L) if p.variable
+        else max(p.Lt, 1))
+    huffman = p.d_plan.mode != dna.MODE_PLAIN
+    d_tabs = (bitpack.walk_tables(p.d_plan.luts(bits), bits, cuda)
+              if huffman else (None, None))
 
-    def plane(words, sub_all, sub, wmax):
-        """The lanes' words (from the first word of lane s0) laid out as
-        their (wmax, sp) plane by K5."""
+    def words(all_words, sub_all, sub):
         w0 = int(np.sum(sub_all[:s0], dtype=np.int64))
         w1 = w0 + int(np.sum(sub, dtype=np.int64))
-        return bitpack.dense_words(
-            _upload_words(words[w0:w1], device),
-            _to_device(bitpack.lane_table(sub), device), wmax, sp)
+        return np.asarray(all_words[w0:w1], np.uint32).view(np.int32)
 
-    q_plane = plane(p.q_words, p.q_sub, q_sub, q_wmax)
+    # the sub-block's one H2D copy; absent pieces are empty
+    (q_words, q_lanes, d_words, d_lanes, tables, q_full, q_packed, d_full,
+     d_packed, lens16, index_tab) = _upload_together([
+         words(p.q_words, p.q_sub, q_sub), bitpack.lane_table(q_sub),
+         words(p.d_words, p.d_sub, d_sub), bitpack.lane_table(d_sub),
+         dna.DECODE_TABLES, _runs(q_tabs[0]), _runs(q_tabs[1]),
+         _runs(d_tabs[0]), _runs(d_tabs[1]),
+         # < 2^16 (the meta section's 16-bit Lt bounds them)
+         p.lens_np[s0 * G:s0 * G + live].astype(np.uint16).view(np.int16)
+         if p.variable else _NONE,
+         _NONE if out_meta is None else out_meta.index_table()], device)
+    if p.variable:
+        lens = torch.zeros(rows, dtype=torch.int32, device=device)
+        lens[:live] = lens16.int() & 0xFFFF
+    else:
+        lens = _record_lens(p.lens_np, rows, device, s0 * G)
+    tables = dna.device_tables(tables)
+
+    q_plane = bitpack.dense_words(q_words, q_lanes, q_wmax, sp)
+    q_walk = _walk_luts_up(q_tabs, q_full, q_packed, bits)
     if p.variable:
         qual_t = quality.decode_walk_masked(
-            q_plane, lens, q_luts, p.L, G, bits,
+            q_plane, lens, q_walk, p.L, G, bits,
             legacy=cfg.legacy_tail_trees)
     else:
         qual_t = quality.decode_walk(
-            q_plane, lens, q_luts, p.L, p.Lt, G, bits,
+            q_plane, lens, q_walk, p.L, p.Lt, G, bits,
             legacy=cfg.legacy_tail_trees)
     keep = (qual_t < 128) & quality.valid_mask(lens, p.L)
-    d_plane = plane(p.d_words, p.d_sub, d_sub, d_wmax)
-    if p.d_plan.mode == dna.MODE_PLAIN:
-        dna_syms = dna.decode_plain_walk(d_plane, keep, G)
-    else:
+    d_plane = bitpack.dense_words(d_words, d_lanes, d_wmax, sp)
+    if huffman:
         dna_syms = dna.decode_huffman_walk(
-            d_plane, keep, p.d_plan.luts(bits)[0], G, bits)
-    seq, qual = dna.restore_ambiguity(dna_syms, qual_t, lens)
+            d_plane, keep, _walk_luts_up(d_tabs, d_full, d_packed, bits), G,
+            bits)
+    else:
+        dna_syms = dna.decode_plain_walk(d_plane, keep, G, tables["acgt"])
+    if out_meta is not None and out_meta.qual8:
+        return _pack_out(dna_syms[:live], qual_t[:live], index_tab, out_meta)
+    seq, qual = dna.restore_ambiguity(dna_syms, qual_t, lens,
+                                      tables["amb_char"])
+    if out_meta is not None:
+        return _pack_out(seq[:live], qual[:live], index_tab, out_meta)
     if p.is_delta:
-        seq = dna.delta_untranslate(seq, lens)
+        seq = dna.delta_untranslate(seq, lens, tables["nuc_index"])
     return torch.stack([seq, qual])
 
 
 def _decode_device(p: _DParsed, cfg: CodecConfig, device,
-                   codec=None) -> list:
-    """The restored (2, rows, L) planes of the sub-block, in row order: one
-    tensor on `device` (all Rp rows), or with a codec
-    (parallel.mesh.ShardedSubblockCodec) each shard's contiguous range of
-    whole lanes on its own device."""
+                   codec=None) -> tuple:
+    """(blobs, out_meta) of the sub-block, pending fetch. One device: the
+    packed live rows (out_meta = _out_meta(p)), or the restored (2, Rp, L)
+    planes where out_meta is None. With a codec
+    (parallel.mesh.ShardedSubblockCodec): each shard's contiguous range of
+    whole lanes on its own device, restored planes in row order."""
     if not p.R:
-        return [torch.zeros((2, 0, p.L), dtype=torch.uint8, device=device)]
+        return [torch.zeros((2, 0, p.L), dtype=torch.uint8,
+                            device=device)], None
     # both tables are checked before anything is uploaded
     for sub in (p.q_sub, p.d_sub):
         bitpack.plane_geometry(sub, p.G, p.L, cfg.max_code_len)
     q_luts = (p.q_tables.luts(cfg.max_code_len) if p.q_tables.n_trees
               else np.zeros((1, 1 << cfg.max_code_len), np.int32))
     if codec is not None:
-        return codec.decode_walk(p, cfg, q_luts)
-    return [decode_lanes(p, cfg, device, 0, p.q_sub.shape[0], q_luts)]
+        return codec.decode_walk(p, cfg, q_luts), None
+    meta = _out_meta(p)
+    return [decode_lanes(p, cfg, device, 0, p.q_sub.shape[0], q_luts,
+                         meta)], meta
 
 
 def decode_stage_a(data: bytes, cfg: CodecConfig, device,
@@ -622,19 +852,65 @@ def decode_stage_a(data: bytes, cfg: CodecConfig, device,
     p = _decode_parse(data, cfg, executor)
     t0 = _tick("d.parse", t0)
     st = _DStage()
-    st.R, st.lens_np, st.crc = p.R, p.lens_np, p.crc
+    st.R, st.L, st.lens_np, st.crc = p.R, p.L, p.lens_np, p.crc
     st.titles_np, st.tlens_np = p.titles_np, p.tlens_np
-    st.blobs = _decode_device(p, cfg, device, codec)
+    st.blobs, st.out_meta = _decode_device(p, cfg, device, codec)
     _tick("d.device_dispatch", t0)
     return st
+
+
+def _unpack_out(words: np.ndarray, meta: _OutMeta, R: int, L: int) -> tuple:
+    """The fetched words of _pack_out -> (R, L) uint8 seq/qual planes,
+    through native.decode_tail or its numpy fallback (copied from
+    phyngsc_tpu/pipeline/subblock.py:629-665): qual8 restores the
+    ambiguity here, where qualities >= 128 mark the transferred
+    positions."""
+    from phyngsc_tpu_torch.utils import native
+
+    n, w, alpha = R * L, meta.w, meta.alpha
+    q6, qual8 = meta.q6, meta.qual8
+    n_sw, n_qw = _out_fetch_words(n, w, q6)
+    qb = 6 if q6 else 8
+    a32 = np.zeros(32, np.uint8)
+    a32[: alpha.shape[0]] = alpha
+    nt = native.decode_tail(words[:n_sw], words[n_sw:n_sw + n_qw], n, w, qb,
+                            plus33=q6, qual8=qual8, alpha=a32,
+                            amb=dna.AMB_CHAR)
+    if nt is not None:
+        return nt[0].reshape(R, L), nt[1].reshape(R, L)
+    # numpy fallback (native lib absent): identical math
+    idx = _lane_unpack_np(words[:n_sw], w, n)
+    q = _lane_unpack_np(words[n_sw:n_sw + n_qw], qb, n)
+    if qual8:
+        # host-side ambiguity restore (inverse of
+        # phyNGSC.cpp:573-588): the fetched planes are PRE-restore —
+        # kept-symbol alphabet indices and raw qual_t, whose symbols
+        # >= 128 mark transferred positions (tasks.cpp:1084-1087).
+        # int16 throughout: the values fit and the plane is
+        # megabytes per sub-block
+        qt = q.astype(np.int16)
+        moved = qt >= 128
+        code = np.clip((qt - 112) >> 3, 0, 16)
+        seq = np.where(moved, dna.AMB_CHAR[code], alpha[idx])
+        qual = np.where(moved, (qt - 112 - (code << 3) + 33
+                                ).astype(np.int16), qt)
+    else:
+        seq = alpha[idx]
+        qual = q + 33 if q6 else q
+    return (seq.astype(np.uint8).reshape(R, L),
+            qual.astype(np.uint8).reshape(R, L))
 
 
 def decode_stage_b(st: _DStage) -> bytes:
     t0 = time.perf_counter() if TIMING is not None else 0.0
     parts = [_fetch(b) for b in st.blobs]  # the decode fetch, one a shard
-    both = parts[0] if len(parts) == 1 else np.concatenate(parts, axis=1)
     t0 = _tick("d.fetch", t0)
-    seq, qual = both[0, : st.R], both[1, : st.R]
+    if st.out_meta is not None:
+        seq, qual = _unpack_out(parts[0].view(np.uint32), st.out_meta, st.R,
+                                st.L)
+    else:
+        both = parts[0] if len(parts) == 1 else np.concatenate(parts, axis=1)
+        seq, qual = both[0, : st.R], both[1, : st.R]
     if st.tlens_np is None:        # title decode ran on a worker thread
         st.titles_np, st.tlens_np = st.titles_np.result()
     out = _reassemble(st.R, st.lens_np, st.titles_np, st.tlens_np, seq, qual)

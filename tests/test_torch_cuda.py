@@ -13,9 +13,10 @@ all) on corrupt streams, lanes whose slot ranges are not 16-byte aligned,
 lanes past 2^16 words, reads of 65,532 positions over 256 trees, round
 trips of every input class, also at G = 33 over L = 500 (K3), a sharded
 round trip on one card named twice, K1, K4 and K5 launched from a thread
-that never set its device, make_mesh past the visible cards, and two
-processes of the multi-process driver on the card. Skipped without a CUDA
-device; on the card (which has no jax) run
+that never set its device, make_mesh past the visible cards, two
+processes of the multi-process driver on the card, and the host<->device
+wire (ops/transfer's unpack, the packed decode fetch) on three corpora.
+Skipped without a CUDA device; on the card (which has no jax) run
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
@@ -742,3 +743,82 @@ def test_sharded_over_every_card(cuda):
         assert blob == compress_bytes(data, CodecConfig(**kw), 2,
                                       device=cuda)
     assert decompress_bytes(blob, cfg, device="cuda") == data
+
+
+def _srr_n(n, seed):
+    """SRR-style 76 bp reads whose leading N keeps a quality outside
+    [33, 40]: the N stays in the DNA stream, which is Huffman-coded."""
+    lines = synthesize_fastq(n, read_len=76, style="SRR",
+                             seed=seed).split(b"\n")
+    for i in range(1, len(lines) - 1, 4):
+        if lines[i][:1] == b"N":
+            lines[i + 2] = b"B" + lines[i + 2][1:]
+    return b"\n".join(lines)
+
+
+def _dense_iupac(n, seed):
+    """36 bp reads, 60% of their bases IUPAC codes, qualities in [33, 40]."""
+    rng = np.random.default_rng(seed)
+    alphabet = np.frombuffer(b"ACGTNYRWSKMDVHB", np.uint8)
+    probs = np.full(15, 0.6 / 11)
+    probs[:4] = 0.4 / 4
+    return b"".join(
+        b"@ex%d\n%s\n+\n%s\n" % (
+            i, rng.choice(alphabet, size=36, p=probs).tobytes(),
+            rng.integers(33, 41, size=36).astype(np.uint8).tobytes())
+        for i in range(n))
+
+
+WIRE = {"ERR": lambda: synthesize_fastq(4000, read_len=36, seed=9),
+        "SRR-N": lambda: _srr_n(2000, 10),
+        "dense IUPAC": lambda: _dense_iupac(2000, 11)}
+
+
+def _payloads(blob):
+    from phyngsc_tpu_torch.container import block as blockmod
+    from phyngsc_tpu_torch.container import footer as footermod
+
+    foot = footermod.read_footer(blob)
+    offs = np.concatenate([[0], np.cumsum(foot.block_sizes_in_file_order())])
+    blocks = ((w, blob[offs[i]:offs[i + 1]]) for i, w in enumerate(foot.cbo))
+    return [p for _, p in blockmod.iter_subblocks(blocks)]
+
+
+@pytest.mark.parametrize("corpus", list(WIRE))
+def test_wire_on_card_matches_cpu(cuda, corpus):
+    """ops/transfer's unpack of each plane's packed words, and each
+    sub-block's packed decode fetch (the words stage A of the decode leaves
+    for the fetch, and how they are packed), equal the CPU's on the card."""
+    from phyngsc_tpu_torch.ops import transfer
+    from phyngsc_tpu_torch.pipeline import subblock
+    from phyngsc_tpu_torch.utils.fastq import index_records
+
+    data = WIRE[corpus]()
+    buf = np.frombuffer(data, np.uint8)
+    idx = index_records(buf)
+    lens = idx.seq_len.astype(np.int64)
+    R, L = lens.shape[0], int(lens.max())
+    modes = []
+    for start, pack, unpack in (
+            (idx.seq_start, transfer.pack_seq_np, transfer.unpack_seq),
+            (idx.qual_start, transfer.pack_qual_np, transfer.unpack_qual)):
+        mode, words = pack(subblock._gather_matrix(buf, start, lens, L))
+        modes.append(mode)
+        w = torch.from_numpy(words.view(np.int32))
+        assert torch.equal(unpack(w.to(cuda), mode, R, L).cpu(),
+                           unpack(w, mode, R, L))
+    assert modes[0] == {"ERR": transfer.SEQ_2BIT_EXC,
+                        "SRR-N": transfer.SEQ_2BIT_EXC,
+                        "dense IUPAC": transfer.SEQ_RAW}[corpus]
+    cfg = CodecConfig(subblock_input_bytes=64 << 10,
+                      records_per_substream=16)
+    blob = compress_bytes(data, cfg, 1, device="cpu")
+    assert compress_bytes(data, cfg, 1, device=cuda) == blob
+    for payload in _payloads(blob):
+        on_card = subblock.decode_stage_a(payload, cfg, cuda)
+        on_cpu = subblock.decode_stage_a(payload, cfg, torch.device("cpu"))
+        meta, want = on_card.out_meta, on_cpu.out_meta
+        assert meta is not None and want is not None
+        assert (meta.w, meta.q6, meta.qual8) == (want.w, want.q6, want.qual8)
+        assert torch.equal(on_card.blobs[0].cpu(), on_cpu.blobs[0])
+    assert decompress_bytes(blob, cfg, device=cuda) == data

@@ -1,10 +1,14 @@
 """The port's copies of phyngsc_tpu's host modules (phyngsc_tpu_torch/config,
 utils/, ops/huffman, container/, parallel/partition) against their
 originals: each copy is its source apart from the first-line note and the
-rewritten imports, and gives the same values and bytes on seeded inputs."""
+rewritten imports, and gives the same values and bytes on seeded inputs.
+The host functions and constants copied into port modules that hold device
+code too (ops/transfer, pipeline/subblock) are their sources the same
+way."""
 
 import dataclasses
 import importlib
+import inspect
 import os
 import re
 
@@ -224,3 +228,45 @@ CASES = {"config": ("config", _config), "bitio": ("utils.bitio", _bitio),
 def test_copy_behaves_like_its_source(case):
     name, check = CASES[case]
     check(*_pair(name))
+
+
+#: (source module, port module, copied functions, copied constants)
+FUNCTION_COPIES = {
+    "ops.transfer": (
+        ["_exc_bucket", "_width", "n_words", "_pack_fixed_np", "pack_seq_np",
+         "seq_alpha_small", "pack_qual_np"],
+        ["SEQ_RAW", "SEQ_2BIT", "SEQ_3BIT", "SEQ_2BIT_EXC", "QUAL_RAW",
+         "QUAL_6BIT", "_PER", "_EXC_MIN_BUCKET"]),
+    "pipeline.subblock": (
+        ["_qual8_mode", "_out_width", "_out_fetch_words", "_lane_unpack_np",
+         "_gather_matrix", "_check_tables"],
+        ["_OUT_PER", "FLAG_VARIABLE_LENGTH", "FLAG_DELTA", "FLAG_CRC"]),
+}
+
+
+def _body(fn) -> str:
+    """fn's source without its docstring, the imports pointing at
+    phyngsc_tpu."""
+    src = inspect.getsource(fn)
+    doc = fn.__doc__
+    if doc:
+        src = src.replace(f'"""{doc}"""', '""', 1)
+    return re.sub(r"\bphyngsc_tpu_torch\b", "phyngsc_tpu", src)
+
+
+@pytest.mark.parametrize("module", list(FUNCTION_COPIES))
+def test_function_copies_are_their_sources(module):
+    """ops/transfer's host half is a verbatim copy, docstrings included;
+    the subblock helpers equal theirs apart from a docstring that names the
+    source."""
+    j, t = _pair(module)
+    names, constants = FUNCTION_COPIES[module]
+    for name in names:
+        a, b = getattr(j, name), getattr(t, name)
+        if module == "ops.transfer":
+            assert re.sub(r"\bphyngsc_tpu_torch\b", "phyngsc_tpu",
+                          inspect.getsource(b)) == inspect.getsource(a), name
+        else:
+            assert _body(b) == _body(a), name
+    for name in constants:
+        assert getattr(t, name) == getattr(j, name), name
