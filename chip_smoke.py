@@ -5,7 +5,10 @@
 
 Phases (any failure exits non-zero):
   1. environment: the card's name and power limit, torch / CUDA / nvcc
-     versions, and the kernels' build time;
+     versions, the host's CPUs (os.cpu_count(), the process's affinity) and
+     the host runtime's threads T, its library (build/host/, built by
+     host_runtime.ensure(), which must succeed) and build seconds, and the
+     kernels' build time;
   2. each hand-written kernel (K1 histogram, K2 uniform walk, K3 masked walk
      in its plain2, Huffman and per-position-tree quality variants, K4 code
      lookup on the (T, A) tables and tree ids stage B uploads, K5 densify)
@@ -27,6 +30,14 @@ Phases (any failure exits non-zero):
      read once and written once at 3.35 TB/s, or the operations at
      67 T/s, whichever is larger), with the walks' chain floor (their
      longest lane's steps at one shared-memory load each);
+  2b. the host runtime (phyngsc_tpu_torch/native/host_runtime.cpp on the
+     card's host): one default ERR005195 sub-block compressed and
+     decompressed on the card, recording each host stage the main path
+     runs (index, gather, packers, table build, title encode and decode,
+     the decode's tail, reassembly); each stage again at T threads, at 1
+     thread and on the numpy versions (PHYNGSC_NO_NATIVE=1), outputs equal;
+     each of the 14 entry points' own calls of that run at T and at 1
+     thread, equal; the ms of each;
   3. the main path: compress_bytes -> decompress_bytes with device="cuda" on
      --mb MB of synthetic ERR005195 36 bp reads, an SRR-style 76 bp corpus
      whose DNA stream is Huffman-coded, variable-length 100 bp reads,
@@ -47,8 +58,10 @@ Phases (any failure exits non-zero):
      (K1 and K5 twice), and variable-length 100 bp reads at data_shards=3
      (an odd lane split); then `python3 -m
      phyngsc_tpu_torch.parallel.distributed` as two processes on the card
-     (gloo metadata), compress and --decompress of the ERR file, and the
-     single-process decompress_file of their container; then one more ERR
+     (gloo metadata), compress and --decompress of the ERR file, each
+     process's log naming the port's library under build/host/ as the one
+     it loaded, and the single-process decompress_file of their container;
+     then one more ERR
      round trip under PHYNGSC_TIMING=1, whose stage split and h2d/d2h byte
      counts are printed and held to the packed wire's limits (at the
      default 264 MB, scaled above it: compress h2d <= 88 MB and d2h <=
@@ -88,17 +101,20 @@ import torch  # noqa: E402
 
 from phyngsc_tpu_torch import (CodecConfig, host_runtime, kernels,  # noqa: E402
                                synthesize_fastq)
-from phyngsc_tpu_torch.models import dna, quality  # noqa: E402
+from phyngsc_tpu_torch.models import dna, quality, title  # noqa: E402
 from phyngsc_tpu_torch.ops import (bitpack, bitpack_host, histogram,  # noqa: E402
                                    lookup, transfer)
 from phyngsc_tpu_torch.pipeline import compress, subblock  # noqa: E402
 from phyngsc_tpu_torch.pipeline.decompress import (  # noqa: E402
     decompress_bytes, decompress_file)
+from phyngsc_tpu_torch.utils import bitio, native  # noqa: E402
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN_DIR = os.path.join(ROOT, "tests", "golden")
 #: scratch files of the file phase, inside the checkout's git-ignored build/
 FILE_DIR = os.path.join(ROOT, "build", "chip_smoke")
+#: where host_runtime builds the port's host runtime
+HOST_DIR = os.path.join(ROOT, "build", "host")
 GOLDEN_CFG = CodecConfig(subblock_input_bytes=32 << 10,
                          records_per_substream=16)
 #: SHA-256 of phyngsc_tpu's compress_bytes(titles_v3 input, GOLDEN_CFG, 2).
@@ -645,6 +661,203 @@ def phase_kernels(dev) -> dict:
     return cases
 
 
+#: each entry point of the host runtime, and the host stage of the main path
+#: that reaches it (title_walk off for unpack_substreams, which the title
+#: decode takes only without it)
+HOST_ENTRIES = {
+    "index_records": "index_records", "gather3": "gather3",
+    "byte_scan": "pack_seq_np", "pack_fixed": "pack_seq_np",
+    "find_non_acgt": "pack_seq_np", "huffman_lengths": "build_tables",
+    "title_scan": "title.encode", "numeric_stats": "title.encode",
+    "gather": "title.encode", "title_walk": "title.decode",
+    "title_assemble": "title.decode",
+    "unpack_substreams": "title.decode, title_walk off",
+    "decode_tail": "_unpack_out", "fastq_assemble": "_reassemble"}
+#: the host stages, where the main path calls them
+HOST_STAGES = {"index_records": (compress, "index_records"),
+               "pack_seq_np": (transfer, "pack_seq_np"),
+               "pack_qual_np": (transfer, "pack_qual_np"),
+               "build_tables": (quality, "build_tables"),
+               "title.encode": (title, "encode"),
+               "title.decode": (title, "decode"),
+               "_unpack_out": (subblock, "_unpack_out"),
+               "_reassemble": (subblock, "_reassemble")}
+
+
+def same(a, b, exact=True) -> bool:
+    """Equal values and shapes, and (exact) dtypes, through lists, tuples
+    and dicts."""
+    if isinstance(a, (list, tuple)):
+        return (isinstance(b, (list, tuple)) and len(a) == len(b)
+                and all(same(x, y, exact) for x, y in zip(a, b)))
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and a.keys() == b.keys()
+                and all(same(a[k], b[k], exact) for k in a))
+    if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        a, b = np.asarray(a), np.asarray(b)
+        return (a.shape == b.shape and (not exact or a.dtype == b.dtype)
+                and np.array_equal(a, b))
+    return a == b
+
+
+def scanned(scan: dict) -> dict:
+    """title_scan's outputs with the cells it leaves unwritten (past each
+    row's separators and fields) zeroed."""
+    ns = scan["nsep"][:, None]
+    out = dict(scan)
+    for k, n in (("sep_pos", ns), ("sep_chars", ns), ("values", ns + 1),
+                 ("numeric_ok", ns + 1)):
+        cols = np.arange(scan[k].shape[1])[None, :]
+        out[k] = np.where(cols < n, scan[k], 0)
+    return out
+
+
+def stage_output(name: str, out):
+    """What a host stage gives, as arrays, bytes and numbers."""
+    if name == "index_records":
+        return [getattr(out, f) for f in ("title_start", "title_end",
+                                          "seq_start", "seq_end",
+                                          "qual_start", "qual_end")]
+    if name == "build_tables":
+        return [out.lens, out.codes, out.singletons]
+    if name == "title.encode":
+        bw = bitio.BitWriter()
+        title.write_header(bw, out)
+        bw.flush()
+        return [bw.getvalue(), out.fixed_words, out.char_words,
+                out.char_sub_n_words]
+    return out
+
+
+def gather3_stage(args):
+    """stage A's gather: native.gather3, else (numpy) three _gather_matrix
+    and the quality plane's max, as subblock.stage_a does."""
+    got = native.gather3(*args)
+    if got is not None:
+        return list(got)
+    buf, t_start, t_lens, TW, s_start, q_start, lens, W = args
+    planes = [subblock._gather_matrix(buf, st, n.astype(np.int64), w)
+              for st, n, w in ((t_start, t_lens, TW), (s_start, lens, W),
+                               (q_start, lens, W))]
+    return planes + [int(planes[2].max()) if len(lens) else 0]
+
+
+def phase_host_runtime(dev, T: int) -> list:
+    """The host runtime on the card's host: one default ERR005195 sub-block
+    through compress_bytes -> decompress_bytes on the card, recording the
+    first call of each host stage (and stage A's gather3); then each stage
+    at T threads, at 1 thread and on the numpy versions, equal, and the
+    calls that each entry point received in the T run, replayed at T and
+    at 1 thread, equal."""
+    data = synthesize_fastq(70000, read_len=36, seed=1)
+    buf = np.frombuffer(data, np.uint8)
+    cfg = compress.resolve_substream(buf, CodecConfig())
+    _, idx = next(compress.iter_subblock_tasks(
+        buf, compress.partition_regions(buf, 1, cfg), cfg))
+    data = data[int(idx.title_start[0]):int(idx.qual_end[-1]) + 1]
+    first = {}
+    saved = {k: getattr(m, a) for k, (m, a) in HOST_STAGES.items()}
+    saved["gather3"] = native.gather3
+
+    def recorder(key, fn):
+        def rec(*args, **kwargs):
+            first.setdefault(key, (args, kwargs))
+            return fn(*args, **kwargs)
+        return rec
+
+    for k, (m, a) in HOST_STAGES.items():
+        setattr(m, a, recorder(k, saved[k]))
+    native.gather3 = recorder("gather3", saved["gather3"])
+    try:
+        blob = compress.compress_bytes(data, CodecConfig(), 1, device=dev)
+        require(decompress_bytes(blob, None, device=dev) == data,
+                "host runtime phase: the sub-block's round trip differs")
+    finally:
+        for k, (m, a) in HOST_STAGES.items():
+            setattr(m, a, saved[k])
+        native.gather3 = saved["gather3"]
+    require(set(first) == set(HOST_STAGES) | {"gather3"},
+            f"host runtime phase: stages not reached: "
+            f"{sorted(set(HOST_STAGES) | {'gather3'} - set(first))}")
+    runs = {}
+    for k, (m, a) in HOST_STAGES.items():
+        args, kwargs = first[k]
+        runs[k] = (lambda k_=k, fn=saved[k], a_=args, kw=kwargs:
+                   stage_output(k_, fn(*a_, **kw)))
+    runs["gather3"] = lambda: gather3_stage(first["gather3"][0])
+    t_args, t_kwargs = first["title.decode"]
+
+    def decode_by_substreams():
+        walk = native.title_walk
+        native.title_walk = lambda *a, **k: None
+        try:
+            return saved["title.decode"](*t_args, **t_kwargs)
+        finally:
+            native.title_walk = walk
+
+    runs["title.decode, title_walk off"] = decode_by_substreams
+
+    stage_ms = {}
+    calls = collections.defaultdict(list)
+    wrappers = {e: getattr(native, e) for e in HOST_ENTRIES}
+
+    def spy(entry, fn):
+        def call(*args, **kwargs):
+            calls[entry].append((args, kwargs))
+            return fn(*args, **kwargs)
+        return call
+
+    for name, fn in runs.items():
+        native.set_threads(1)
+        out_1, ms_1 = fn(), host_ms(fn, 3)
+        os.environ["PHYNGSC_NO_NATIVE"] = "1"
+        try:
+            out_np, ms_np = fn(), host_ms(fn, 3)
+        finally:
+            del os.environ["PHYNGSC_NO_NATIVE"]
+        native.set_threads(T)
+        for e, w in wrappers.items():
+            if HOST_ENTRIES[e] == name:
+                setattr(native, e, spy(e, w))
+        try:
+            out_t = fn()
+        finally:
+            for e, w in wrappers.items():
+                setattr(native, e, w)
+        ms_t = host_ms(fn, 3)
+        require(same(out_t, out_1, exact=False)
+                and same(out_t, out_np, exact=False),
+                f"host stage {name}: T = {T}, 1 thread and numpy differ")
+        stage_ms[name] = (ms_t, ms_1, ms_np)
+    rows = []
+    for entry, stage in HOST_ENTRIES.items():
+        made = calls[entry]
+        require(made, f"host runtime: {stage} never called {entry}")
+        w = wrappers[entry]
+
+        def replay():
+            return [w(*a, **k) for a, k in made]
+
+        native.set_threads(1)
+        got_1, ms_1 = replay(), host_ms(replay, 5)
+        native.set_threads(T)
+        got_t, ms_t = replay(), host_ms(replay, 5)
+        if entry == "title_scan":
+            got_1, got_t = [scanned(x) for x in got_1], [scanned(x)
+                                                         for x in got_t]
+        require(same(got_t, got_1),
+                f"host runtime {entry}: {T} threads and 1 thread differ")
+        s_t, s_1, s_np = stage_ms[stage]
+        row = {"entry": entry, "stage": stage, "calls": len(made),
+               "ms": ms_t, "ms_1_thread": ms_1, "stage_ms": s_t,
+               "stage_ms_1_thread": s_1, "stage_numpy_ms": s_np}
+        print(f"host runtime: {json.dumps(row)}", flush=True)
+        rows.append(row)
+    print(f"host runtime: 14 entry points equal at {T} threads, at 1 thread "
+          f"and on the numpy versions ({len(data)} B sub-block)", flush=True)
+    return rows
+
+
 class WireModes:
     """While entered, notes the wire mode of every sub-block the pipeline
     packs or fetches: ops/transfer's sequence and quality upload packing,
@@ -810,7 +1023,8 @@ def phase_files(dev, data: bytes) -> None:
 
 def run_pair(argv_of, what: str) -> float:
     """argv_of(coordinator, rank) as two child processes (ranks 0 and 1);
-    both must exit 0. Returns the wall seconds until both ended."""
+    both must exit 0 and log the port's host runtime (under build/host/) as
+    the library they loaded. Returns the wall seconds until both ended."""
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         coord = f"127.0.0.1:{s.getsockname()[1]}"
@@ -826,11 +1040,15 @@ def run_pair(argv_of, what: str) -> float:
             p.kill()
     wall = time.perf_counter() - t0
     for i, (p, (_, err)) in enumerate(zip(procs, outs)):
-        print(f"{what} process {i}: exit {p.returncode}; "
-              + " | ".join(line for line in err.splitlines()
-                           if line.startswith("[I]")), flush=True)
+        logs = [line for line in err.splitlines() if line.startswith("[I]")]
+        print(f"{what} process {i}: exit {p.returncode}; " + " | ".join(logs),
+              flush=True)
         require(p.returncode == 0, f"{what} process {i} exited "
                 f"{p.returncode}: {err[-2000:]}")
+        lib = os.path.join(HOST_DIR, "libphyngsc_host_")
+        require(any(f"host runtime {lib}" in line for line in logs),
+                f"{what} process {i} did not load the port's host runtime "
+                f"under {HOST_DIR}")
     return wall
 
 
@@ -979,9 +1197,21 @@ def main() -> int:
                           text=True, check=True).stdout.strip().splitlines()
     print(f"python {sys.version.split()[0]} torch {torch.__version__} cuda "
           f"{torch.version.cuda} nvcc: {nvcc[-1]}", flush=True)
-    print(f"host runtime (native/host_runtime.cpp): "
-          f"{'built' if host_runtime.ensure() else 'absent, numpy fallbacks'}",
-          flush=True)
+    require(not os.environ.get("PHYNGSC_NO_NATIVE"),
+            "PHYNGSC_NO_NATIVE is set: the host runtime would not run")
+    t0 = time.perf_counter()
+    try:
+        lib = host_runtime.ensure()
+    except RuntimeError as e:
+        require(False, f"the host runtime did not build: {e}")
+    T = native.threads()
+    require(native.loaded_path() == lib and os.path.dirname(lib) == HOST_DIR,
+            f"the host runtime loaded is {native.loaded_path()}, not the "
+            f"port's under {HOST_DIR}")
+    print(f"host: os.cpu_count() {os.cpu_count()}, sched_getaffinity "
+          f"{len(os.sched_getaffinity(0))}, host runtime threads T {T}, "
+          f"library {lib}, found or built in {time.perf_counter() - t0:.2f} "
+          "s", flush=True)
     t0 = time.perf_counter()
     kernels.build()
     print(f"kernel build: {time.perf_counter() - t0:.2f} s "
@@ -991,6 +1221,7 @@ def main() -> int:
             print(f"ptxas: {line.strip()}", flush=True)
 
     cases = phase_kernels(dev)
+    phase_host_runtime(dev, T)
     err = corpus_of(args.mb, lambda n: synthesize_fastq(n, read_len=36,
                                                         seed=5))
     launches, err_result = phase_round_trip(dev, err)

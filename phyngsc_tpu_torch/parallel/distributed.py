@@ -42,6 +42,7 @@ from phyngsc_tpu_torch.container import footer as footermod
 from phyngsc_tpu_torch.device import resolve
 from phyngsc_tpu_torch.parallel.offsets import process_allgather, rank_and_size
 from phyngsc_tpu_torch.parallel.partition import partition_regions
+from phyngsc_tpu_torch.utils import native
 from phyngsc_tpu_torch.utils.logging import info
 
 
@@ -151,8 +152,9 @@ def compress_file_distributed(in_path: str, out_path: str,
         os.close(fd)
     os.unlink(spool_path)
     dist.barrier(group)  # every block is written
-    info("process %d/%d wrote %d blocks (%d bytes) at offset %d",
-         pid, n_proc, n_blocks, my_bytes, my_offset)
+    info("process %d/%d wrote %d blocks (%d bytes) at offset %d; host "
+         "runtime %s", pid, n_proc, n_blocks, my_bytes, my_offset,
+         native.loaded_path())
 
 
 def decompress_file_distributed(in_path: str, out_path: str,
@@ -191,8 +193,8 @@ def decompress_file_distributed(in_path: str, out_path: str,
         os.close(fd)
     dec_s = time.perf_counter() - t0
     dist.barrier(group)
-    info("process %d/%d decoded writers %s in %.2fs on %s",
-         pid, n_proc, sorted(mine), dec_s, device)
+    info("process %d/%d decoded writers %s in %.2fs on %s; host runtime %s",
+         pid, n_proc, sorted(mine), dec_s, device, native.loaded_path())
 
 
 def main(argv=None) -> int:

@@ -38,7 +38,6 @@ from phyngsc_tpu_torch.parallel.partition import (partition_regions,
 from phyngsc_tpu_torch.utils.fastq import FastqFormatError, index_records
 from phyngsc_tpu_torch.utils.logging import info
 from phyngsc_tpu_torch.utils.shapes import BucketCtx, bucket_length
-from phyngsc_tpu_torch import host_runtime
 from phyngsc_tpu_torch.device import resolve
 from phyngsc_tpu_torch.pipeline import subblock as sbmod
 
@@ -200,7 +199,6 @@ def compress_to_file(buf: np.ndarray, out, cfg: Optional[CodecConfig] = None,
     > 1 the shards' devices (parallel/mesh.py shard_devices)."""
     cfg = resolve_substream(buf, cfg or CodecConfig())
     device, codec = codec_for(device, cfg)
-    host_runtime.ensure()
     regions = partition_regions(buf, n_writers, cfg)
     assemblers = [blockmod.BlockAssembler(reg.writer_id, cfg.block_size)
                   for reg in regions]

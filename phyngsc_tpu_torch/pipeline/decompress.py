@@ -26,7 +26,6 @@ import numpy as np
 from phyngsc_tpu_torch.config import CodecConfig
 from phyngsc_tpu_torch.container import block as blockmod
 from phyngsc_tpu_torch.container import footer as footermod
-from phyngsc_tpu_torch import host_runtime
 from phyngsc_tpu_torch.parallel.mesh import codec_for
 from phyngsc_tpu_torch.pipeline import subblock as sbmod
 from phyngsc_tpu_torch.utils.logging import info
@@ -58,7 +57,6 @@ def _decode_stream(data, foot: footermod.Footer, cfg: Optional[CodecConfig],
     the same way). device: one device, or with cfg.data_shards > 1 the
     shards' devices (parallel/mesh.py shard_devices)."""
     cfg = cfg or CodecConfig()
-    host_runtime.ensure()
     legacy_trees = foot.version <= 3
     if (foot.records_per_substream != cfg.records_per_substream
             or foot.max_code_len != cfg.max_code_len

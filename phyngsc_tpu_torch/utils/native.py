@@ -1,180 +1,115 @@
-# Copied from phyngsc_tpu/utils/native.py; imports point at phyngsc_tpu_torch.
-"""ctypes loader for the native host runtime (native/host_runtime.cpp).
+# Adapted from phyngsc_tpu/utils/native.py: loads the port's own runtime.
+"""ctypes loader for the port's host runtime (phyngsc_tpu_torch/native/
+host_runtime.cpp).
 
-Auto-builds on first use when a toolchain is present; every entry point has a
-pure-numpy fallback, so the package works without the library (`PHYNGSC_NO_NATIVE=1`
-forces the fallback).
+The library is the one host_runtime.ensure() builds under build/host/, at
+the first use from any entry point; a failed build or load raises. Every
+wrapper returns None only under `PHYNGSC_NO_NATIVE=1`, which sends its
+caller to the numpy version (the runtime's plain version, kept for tests).
 """
 
 from __future__ import annotations
 
 import ctypes
 import os
-import subprocess
+import threading
 from typing import Optional
 
 import numpy as np
 
-_NATIVE_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "native")
-_LIB_PATH = os.path.abspath(os.path.join(_NATIVE_DIR, "libphyngsc_host.so"))
-# wheel installs carry sources (+ maybe a prebuilt .so) in phyngsc_tpu/_native
-_PKG_NATIVE = os.path.join(os.path.dirname(__file__), "..", "_native")
+from phyngsc_tpu_torch import host_runtime
+
 _lib: Optional[ctypes.CDLL] = None
-_tried = False
+_lock = threading.Lock()
 
 
-def _find_lib_path() -> Optional[str]:
-    """Locate (or build) libphyngsc_host.so.
-
-    Search order: $PHYNGSC_NATIVE_LIB (explicit path) → repo-layout
-    native/ (auto-`make`, host-tuned flags) → packaged phyngsc_tpu/_native/
-    prebuilt .so → compile the packaged sources into ~/.cache/phyngsc_tpu.
-    """
-    explicit = os.environ.get("PHYNGSC_NATIVE_LIB")
-    if explicit:
-        return explicit if os.path.exists(explicit) else None
-    if os.path.exists(_LIB_PATH):
-        return _LIB_PATH
-    if os.path.isdir(_NATIVE_DIR):
-        try:
-            subprocess.run(
-                ["make", "-C", os.path.abspath(_NATIVE_DIR)],
-                capture_output=True, timeout=120, check=True,
-            )
-            return _LIB_PATH
-        except Exception:
-            pass
-    pkg_so = os.path.abspath(os.path.join(_PKG_NATIVE, "libphyngsc_host.so"))
-    if os.path.exists(pkg_so):
-        return pkg_so
-    pkg_src = os.path.abspath(os.path.join(_PKG_NATIVE, "host_runtime.cpp"))
-    if os.path.exists(pkg_src):
-        cache = os.path.join(
-            os.environ.get("XDG_CACHE_HOME",
-                           os.path.expanduser("~/.cache")), "phyngsc_tpu")
-        out = os.path.join(cache, "libphyngsc_host.so")
-        if os.path.exists(out) and (os.path.getmtime(out)
-                                    >= os.path.getmtime(pkg_src)):
-            return out
-        try:
-            os.makedirs(cache, exist_ok=True)
-            subprocess.run(
-                ["g++", "-O3", "-march=native", "-fPIC", "-fopenmp",
-                 "-std=c++17", "-shared", pkg_src, "-o", out],
-                capture_output=True, timeout=300, check=True,
-            )
-            return out
-        except Exception:
-            return None
-    return None
+def _find_lib_path() -> str:
+    """The port's library (built on first use; RuntimeError when it
+    cannot be)."""
+    return host_runtime.ensure()
 
 
 def _load() -> Optional[ctypes.CDLL]:
-    global _lib, _tried
-    if _tried:
-        return _lib
-    _tried = True
     if os.environ.get("PHYNGSC_NO_NATIVE"):
         return None
-    path = _find_lib_path()
-    if path is None:
-        return None
+    return _load_lib()
+
+
+def _signatures() -> dict:
+    """Each entry point's (restype, argtypes)."""
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    return {
+        "phyngsc_threads": (ctypes.c_int, []),
+        "phyngsc_set_threads": (ctypes.c_int, [ctypes.c_int]),
+        "phyngsc_index_records": (
+            i64, [vp, i64, i64p, i64p, i64p, i64p, i64p, i64p, i64,
+                  ctypes.c_int]),
+        "phyngsc_gather": (None, [vp, i64, i64p, i32p, i64, i64, vp]),
+        "phyngsc_huffman_lengths": (None, [i64p, i32, i32, i32, vp, i32p]),
+        "phyngsc_title_scan": (
+            None, [vp, i32p, i64, i64, vp, i32, i32p, i32p, vp, i64p, vp]),
+        "phyngsc_fastq_assemble": (
+            None, [vp, i32p, i64, vp, vp, i32p, i64, i64p, i64, vp]),
+        "phyngsc_title_walk": (
+            None, [vp, i64, i64p, i64, i64, i32p, i32, i32, i32p, i32p,
+                   i32p, i32p, i64, i64p, i32p, i32p]),
+        "phyngsc_title_assemble": (
+            None, [i32, i32p, i32p, i64p, i64p, i32p, i64p, i32p, vp, i64,
+                   i64, vp]),
+        "phyngsc_pack_fixed": (None, [vp, i64, i32, i32, vp]),
+        "phyngsc_gather3": (
+            i32, [vp, i64, i64p, i32p, i64, i64p, i64p, i32p, i64, i64, vp,
+                  vp, vp]),
+        "phyngsc_decode_tail": (
+            None, [vp, vp, i64, i32, i32, i32, i32, vp, vp, vp, vp]),
+        "phyngsc_find_non_acgt": (i64, [vp, i64, i64, vp]),
+        "phyngsc_byte_scan": (None, [vp, i64, i64p]),
+        "phyngsc_numeric_stats": (
+            None, [i64p, i64, i64, i64, i64, i64p, i64p, i64p, i64p, i64p,
+                   vp, vp]),
+        "phyngsc_unpack_substreams": (
+            None, [vp, i64, i64p, i64, i32p, i32, i32p, vp, i64, i32p]),
+    }
+
+
+def _bind(path: str) -> None:
+    global _lib
     try:
         lib = ctypes.CDLL(path)
-    except OSError:
-        return None
-    i64p = ctypes.POINTER(ctypes.c_int64)
-    lib.phyngsc_index_records.restype = ctypes.c_int64
-    lib.phyngsc_index_records.argtypes = [
-        ctypes.c_void_p, ctypes.c_int64, i64p, i64p, i64p, i64p, i64p, i64p,
-        ctypes.c_int64, ctypes.c_int,
-    ]
-    lib.phyngsc_gather.restype = None
-    lib.phyngsc_gather.argtypes = [
-        ctypes.c_void_p, ctypes.c_int64, i64p,
-        ctypes.POINTER(ctypes.c_int32), ctypes.c_int64, ctypes.c_int64,
-        ctypes.c_void_p,
-    ]
-    lib.phyngsc_huffman_lengths.restype = None
-    lib.phyngsc_huffman_lengths.argtypes = [
-        i64p, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
-        ctypes.c_void_p, ctypes.POINTER(ctypes.c_int32),
-    ]
-    i32p = ctypes.POINTER(ctypes.c_int32)
-    lib.phyngsc_title_scan.restype = None
-    lib.phyngsc_title_scan.argtypes = [
-        ctypes.c_void_p, i32p, ctypes.c_int64, ctypes.c_int64,
-        ctypes.c_void_p, ctypes.c_int32,
-        i32p, i32p, ctypes.c_void_p, i64p, ctypes.c_void_p,
-    ]
-    if hasattr(lib, "phyngsc_fastq_assemble"):
-        lib.phyngsc_fastq_assemble.restype = None
-        lib.phyngsc_fastq_assemble.argtypes = [
-            ctypes.c_void_p, i32p, ctypes.c_int64,
-            ctypes.c_void_p, ctypes.c_void_p, i32p, ctypes.c_int64,
-            i64p, ctypes.c_int64, ctypes.c_void_p,
-        ]
-    if hasattr(lib, "phyngsc_title_walk"):
-        lib.phyngsc_title_walk.restype = None
-        lib.phyngsc_title_walk.argtypes = [
-            ctypes.c_void_p, ctypes.c_int64, i64p, ctypes.c_int64,
-            ctypes.c_int64, i32p, ctypes.c_int32, ctypes.c_int32,
-            i32p, i32p, i32p, i32p, ctypes.c_int64, i64p, i32p,
-            i32p,
-        ]
-    if hasattr(lib, "phyngsc_title_assemble"):
-        lib.phyngsc_title_assemble.restype = None
-        lib.phyngsc_title_assemble.argtypes = [
-            ctypes.c_int32, i32p, i32p, i64p, i64p, i32p, i64p, i32p,
-            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
-        ]
-    if hasattr(lib, "phyngsc_pack_fixed"):
-        lib.phyngsc_pack_fixed.restype = None
-        lib.phyngsc_pack_fixed.argtypes = [
-            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
-            ctypes.c_void_p,
-        ]
-    if hasattr(lib, "phyngsc_gather3"):
-        lib.phyngsc_gather3.restype = ctypes.c_int32
-        lib.phyngsc_gather3.argtypes = [
-            ctypes.c_void_p, ctypes.c_int64, i64p,
-            ctypes.POINTER(ctypes.c_int32), ctypes.c_int64, i64p, i64p,
-            ctypes.POINTER(ctypes.c_int32), ctypes.c_int64, ctypes.c_int64,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ]
-    if hasattr(lib, "phyngsc_decode_tail"):
-        lib.phyngsc_decode_tail.restype = None
-        lib.phyngsc_decode_tail.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-            ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p,
-        ]
-    if hasattr(lib, "phyngsc_find_non_acgt"):
-        lib.phyngsc_find_non_acgt.restype = ctypes.c_int64
-        lib.phyngsc_find_non_acgt.argtypes = [
-            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
-        ]
-    if hasattr(lib, "phyngsc_byte_scan"):
-        lib.phyngsc_byte_scan.restype = None
-        lib.phyngsc_byte_scan.argtypes = [
-            ctypes.c_void_p, ctypes.c_int64, i64p,
-        ]
-    if hasattr(lib, "phyngsc_numeric_stats"):
-        lib.phyngsc_numeric_stats.restype = None
-        lib.phyngsc_numeric_stats.argtypes = [
-            i64p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-            ctypes.c_int64, i64p, i64p, i64p, i64p, i64p,
-            ctypes.c_void_p, ctypes.c_void_p,
-        ]
-    if hasattr(lib, "phyngsc_unpack_substreams"):
-        lib.phyngsc_unpack_substreams.restype = None
-        lib.phyngsc_unpack_substreams.argtypes = [
-            ctypes.c_void_p, ctypes.c_int64, i64p, ctypes.c_int64,
-            i32p, ctypes.c_int32, i32p, ctypes.c_void_p, ctypes.c_int64,
-            i32p,
-        ]
+    except OSError as e:
+        raise RuntimeError(f"the host runtime {path} cannot be loaded: {e}"
+                           ) from e
+    for name, (restype, argtypes) in _signatures().items():
+        fn = getattr(lib, name)
+        fn.restype = restype
+        fn.argtypes = argtypes
     _lib = lib
+
+
+def loaded_path() -> Optional[str]:
+    """The loaded library's path; None before the runtime's first use."""
+    lib = _lib
+    return None if lib is None else lib._name
+
+
+def threads() -> int:
+    """T, the threads each parallel region of the runtime may use."""
+    return _load_lib().phyngsc_threads()
+
+
+def set_threads(t: int) -> int:
+    """Sets T (t <= 0: the CPUs the process may use); returns the new T."""
+    return _load_lib().phyngsc_set_threads(int(t))
+
+
+def _load_lib() -> ctypes.CDLL:
+    """The library, whatever PHYNGSC_NO_NATIVE says."""
+    if _lib is None:
+        with _lock:
+            if _lib is None:
+                _bind(_find_lib_path())
     return _lib
 
 

@@ -14,8 +14,9 @@ lanes past 2^16 words, reads of 65,532 positions over 256 trees, round
 trips of every input class, also at G = 33 over L = 500 (K3), a sharded
 round trip on one card named twice, K1, K4 and K5 launched from a thread
 that never set its device, make_mesh past the visible cards, two
-processes of the multi-process driver on the card, and the host<->device
-wire (ops/transfer's unpack, the packed decode fetch) on three corpora.
+processes of the multi-process driver on the card, the host<->device
+wire (ops/transfer's unpack, the packed decode fetch) on three corpora, and
+the round trips with the host runtime on one thread and on all.
 Skipped without a CUDA device; on the card (which has no jax) run
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -822,3 +823,26 @@ def test_wire_on_card_matches_cpu(cuda, corpus):
         assert (meta.w, meta.q6, meta.qual8) == (want.w, want.q6, want.qual8)
         assert torch.equal(on_card.blobs[0].cpu(), on_cpu.blobs[0])
     assert decompress_bytes(blob, cfg, device=cuda) == data
+
+
+@pytest.mark.parametrize("corpus", ["ERR005195", "variable-length"])
+def test_round_trips_at_one_host_thread_and_all(cuda, corpus):
+    """The host runtime at T = 1 and at T = the CPUs the process may use:
+    the same container (the CPU's) and the same bytes back, on the card."""
+    from phyngsc_tpu_torch.utils import native
+
+    data = (synthesize_fastq(100000, read_len=36, seed=21)
+            if corpus == "ERR005195" else
+            synthesize_fastq(40000, read_len=100, seed=22,
+                             variable_length=True))
+    blobs = {}
+    try:
+        for t in (1, 0):
+            T = native.set_threads(t)
+            blobs[T] = compress_bytes(data, None, 1, device=cuda)
+            assert decompress_bytes(blobs[T], device=cuda) == data
+    finally:
+        native.set_threads(0)
+    assert len(blobs) == 2 or native.threads() == 1
+    assert len(set(blobs.values())) == 1
+    assert blobs[1] == compress_bytes(data, None, 1, device="cpu")

@@ -2,9 +2,11 @@
 utils/, ops/huffman, container/, parallel/partition) against their
 originals: each copy is its source apart from the first-line note and the
 rewritten imports, and gives the same values and bytes on seeded inputs.
-The host functions and constants copied into port modules that hold device
-code too (ops/transfer, pipeline/subblock) are their sources the same
-way."""
+utils/native is adapted, not copied (it loads the port's own runtime from
+build/host/), so only where each loader looks is held here;
+tests/test_torch_native.py holds the two runtimes' outputs. The host
+functions and constants copied into port modules that hold device code too
+(ops/transfer, pipeline/subblock) are their sources the same way."""
 
 import dataclasses
 import importlib
@@ -16,7 +18,7 @@ import numpy as np
 import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-COPIES = ["config", "utils.bitio", "utils.fastq", "utils.native",
+COPIES = ["config", "utils.bitio", "utils.fastq",
           "utils.shapes", "ops.huffman", "container.block",
           "container.footer", "container.ngsc_import",
           "container.ngsc_export", "parallel.partition"]
@@ -144,17 +146,19 @@ def _fastq(j, t):
 
 
 def _native(j, t):
-    # each loader (and the port's host_runtime) resolves native/ beside its
-    # own package: one repo-root libphyngsc_host.so in a checkout
+    # the JAX package's loader resolves native/ beside its package; the
+    # port's loads only its own build under build/host/ beside its package
     from phyngsc_tpu_torch import host_runtime
 
-    for mod, pkg in ((j, "phyngsc_tpu"), (t, "phyngsc_tpu_torch")):
-        root = os.path.dirname(os.path.dirname(os.path.abspath(
-            importlib.import_module(pkg).__file__)))
-        assert os.path.abspath(mod._LIB_PATH) == os.path.join(
-            root, "native", "libphyngsc_host.so")
-    assert os.path.abspath(host_runtime.LIB_PATH) == os.path.abspath(
-        t._LIB_PATH)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(
+        importlib.import_module("phyngsc_tpu").__file__)))
+    assert os.path.abspath(j._LIB_PATH) == os.path.join(
+        root, "native", "libphyngsc_host.so")
+    path = t._find_lib_path()
+    assert path == host_runtime.library_path()
+    assert os.path.dirname(path) == os.path.join(root, "build", "host")
+    assert os.path.basename(path).startswith("libphyngsc_host_")
+    assert os.path.exists(path)
 
 
 def _block(j, t):
