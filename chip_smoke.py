@@ -70,6 +70,20 @@ Phases (any failure exits non-zero):
   5. the committed golden containers tiny_v1 / tiny_v2 / titles_v3 /
      longread_v4 decode to their inputs, and the titles_v3 input re-encodes
      to phyngsc_tpu's bytes (by SHA-256);
+  5b. the asynchronous execution (device.py: task streams, pinned
+     staging, fetches on events): an upload of a stage-A-sized staging
+     buffer returns in under 5 ms while a sleep of tens of ms runs ahead
+     of its copy on its stream, and a fetch returns while a longer sleep
+     still runs on another task's stream, each with the right bytes and
+     its ms printed; the ERR round trip under
+     torch.cuda.set_sync_debug_mode("error") (no blocking copy, .item() or
+     synchronize on any thread), byte-identical and with phase 3's
+     container; then one ERR compress and one ERR decompress under
+     torch.profiler: the card's busy share over each call's wall (the
+     union of its kernel, copy and memset intervals), the calling
+     thread's seconds in CPU ops and in each synchronizing CUDA call, by
+     enclosing op (utils/logging.py device_activity; phase 4b prints the
+     stage split);
   6. each phase-2 kernel case's own device time from a torch.profiler trace
      (last, so that the profiler cannot touch the timed round trips).
 The last line is {"ok": true, "device": {...}}; the line before it lists the
@@ -108,6 +122,8 @@ from phyngsc_tpu_torch.pipeline import compress, subblock  # noqa: E402
 from phyngsc_tpu_torch.pipeline.decompress import (  # noqa: E402
     decompress_bytes, decompress_file)
 from phyngsc_tpu_torch.utils import bitio, native  # noqa: E402
+from phyngsc_tpu_torch import device as devmod  # noqa: E402
+from phyngsc_tpu_torch.utils.logging import device_activity  # noqa: E402
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN_DIR = os.path.join(ROOT, "tests", "golden")
@@ -1174,6 +1190,83 @@ def phase_goldens(dev) -> None:
                   "bytes", flush=True)
 
 
+def phase_async(dev, err: bytes, err_result: dict) -> None:
+    """5b: the two probes, the round trip under sync-debug mode, the busy
+    share."""
+    sleep_cycles = 100_000_000
+    (mine,), (theirs,) = (devmod.task_streams([dev], i) for i in range(2))
+    words = np.random.default_rng(3).integers(0, 256, size=8_400_000,
+                                              dtype=np.uint8)
+    with torch.cuda.stream(mine):
+        devmod.upload([words], dev)  # the staging block, made once
+        torch.cuda.synchronize()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        torch.cuda._sleep(sleep_cycles)
+        end.record()
+        t0 = time.perf_counter()
+        (got,) = devmod.upload([words], dev)
+        up_ms = (time.perf_counter() - t0) * 1e3
+        back = devmod.fetch_async(got).result()
+    require(np.array_equal(back, words), "async probe: the upload's bytes "
+            "differ")
+    sleep_ms = start.elapsed_time(end)
+    print(f"async probe: upload of {words.nbytes} B returned in {up_ms:.3f} "
+          f"ms behind a {sleep_ms:.1f} ms sleep on its stream", flush=True)
+    require(up_ms < 5, f"async probe: the upload waited {up_ms:.2f} ms")
+    x = torch.arange(1 << 22, dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
+    with torch.cuda.stream(theirs):
+        torch.cuda._sleep(4 * sleep_cycles)
+        theirs_done = torch.cuda.Event()
+        theirs_done.record()
+    with torch.cuda.stream(mine):
+        pending = devmod.fetch_async(x * 3)
+    t0 = time.perf_counter()
+    got = pending.result()
+    fetch_ms = (time.perf_counter() - t0) * 1e3
+    still = not theirs_done.query()
+    print(f"async probe: fetch of {got.nbytes} B returned in {fetch_ms:.3f} "
+          f"ms, another task's sleep still running: {still}", flush=True)
+    require(still and np.array_equal(
+        got, np.arange(1 << 22, dtype=np.int32) * 3),
+        "async probe: the fetch waited for another task's stream")
+    torch.cuda.synchronize()
+
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        blob = compress.compress_bytes(err, CodecConfig(), 1, device=dev)
+        back = decompress_bytes(blob, None, device=dev)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    require(back == err and hashlib.sha256(blob).hexdigest()
+            == err_result["sha256"], "the round trip under sync-debug mode "
+            "is not phase 3's")
+    print("sync debug: the ERR round trip raised nothing under "
+          "torch.cuda.set_sync_debug_mode('error'), byte-identical",
+          flush=True)
+
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    for side, call in (
+            ("compress", lambda: compress.compress_bytes(err, CodecConfig(),
+                                                         1, device=dev)),
+            ("decompress", lambda: decompress_bytes(blob, None, device=dev))):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            with record_function(f"smoke.{side}"):
+                out = call()
+                torch.cuda.synchronize()
+        require(out == (blob if side == "compress" else err),
+                f"the profiled {side} differs")
+        trace = os.path.join(ROOT, "build", "chip_smoke_trace.json")
+        act = device_activity(prof, f"smoke.{side}", trace)
+        os.remove(trace)
+        require(act["busy_s"] > 0, f"the profiled {side} ran nothing on the "
+                "card")
+        print(f"busy share {side}: {json.dumps(act)}", flush=True)
+
+
 def smi() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1228,6 +1321,7 @@ def main() -> int:
     phase_files(dev, err)
     sharded = phase_sharded(dev, err, err_result)
     phase_goldens(dev)
+    phase_async(dev, err, err_result)
     phase_device_times(cases)
     require(all(sys.modules.get(m) is None for m in ("jax", "phyngsc_tpu")),
             "jax or phyngsc_tpu was imported")

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from phyngsc_tpu_torch.config import CodecConfig
+from phyngsc_tpu_torch.device import upload
 from phyngsc_tpu_torch.utils.bitio import (BitReader, BitWriter, bit_length,
                                            get_uint_array, put_uint_array)
 from phyngsc_tpu_torch.ops import bitpack, histogram, huffman, lookup
@@ -51,7 +52,8 @@ def valid_mask(lens: torch.Tensor, L: int) -> torch.Tensor:
 
 
 def _table(a: np.ndarray, device) -> torch.Tensor:
-    return torch.from_numpy(a.astype(np.int64)).to(device)
+    """A host table as int64 on `device`, uploaded without waiting."""
+    return upload([a.astype(np.int64)], device)[0]
 
 
 #: ACGT, AMB_CHAR and NUC_INDEX as one int64 host array, the decode's

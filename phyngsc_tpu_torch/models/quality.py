@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from phyngsc_tpu_torch.config import CodecConfig
+from phyngsc_tpu_torch.device import upload
 from phyngsc_tpu_torch.utils.bitio import (BitReader, BitWriter, bit_length,
                                            get_uint_array, put_uint_array)
 from phyngsc_tpu_torch import kernels
@@ -71,8 +72,8 @@ def analyze(qual: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
     L = qual.shape[1]
     counts = histogram.position_histogram(qual, valid_mask(lens, L), ALPHABET)
     if L > MAX_TREES:
-        gid = torch.from_numpy(tree_group_ids(L, MAX_TREES)).long().to(
-            counts.device)
+        gid = upload([tree_group_ids(L, MAX_TREES).astype(np.int64)],
+                     counts.device)[0]
         grouped = torch.zeros((MAX_TREES, ALPHABET), dtype=torch.int32,
                               device=counts.device)
         counts = grouped.index_add_(0, gid, counts)

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from phyngsc_tpu_torch import kernels
+from phyngsc_tpu_torch.device import upload
 from phyngsc_tpu_torch.ops.bitpack_host import dense_geometry
 
 WORD_BITS = 32
@@ -281,11 +282,10 @@ def walk_luts(luts, lut_bits: int, device, n_ids: int = 1) -> WalkLuts:
         return luts
     full, packed, k, n_primary = walk_tables(
         luts, lut_bits, torch.device(device).type == "cuda", n_ids)
-    wl = WalkLuts(torch.from_numpy(full).to(device), lut_bits)
-    if packed is not None:
-        wl.packed = torch.from_numpy(packed).to(device)
-        wl.k, wl.n_primary = k, n_primary
-    return wl
+    if packed is None:
+        return WalkLuts(upload([full], device)[0], lut_bits)
+    full_d, packed_d = upload([full, packed], device)
+    return WalkLuts(full_d, lut_bits, packed_d, k, n_primary)
 
 
 def _walk_plain(plane, luts, tree_step, consume, lut_bits, plain2):

@@ -15,7 +15,11 @@ thread = buffer chunk, SURVEY §1) maps onto a 2-D grid of torch devices:
 A device may appear in several cells: one card (or the CPU) then runs every
 shard in turn, which is how one H100 runs two shards and how the CPU tests
 stand in for several devices. Each shard's work runs with its device
-current, on that device's current stream.
+current, on that device's current stream: inside the pipeline's stages,
+the sub-block's task stream of that device (device.use_streams makes the
+task's stream of every shard device current at once), so that a copy
+between two devices (PyTorch orders it on both devices' current streams)
+is ordered after its producer and before its consumer.
 """
 
 from __future__ import annotations

@@ -3,8 +3,10 @@
 Partitions the input into writer regions, indexes records in bounded
 windows, encodes sub-blocks through the port's subblock stages
 (software-pipelined: host stages A and C on a thread pool, stage B and every
-bucket decision on the calling thread in task order, all device work on
-PyTorch's current stream), frames them into fixed-size blocks and writes the
+bucket decision on the calling thread in task order; each sub-block's
+device work on the streams of the next of pipeline_depth + 1 task slots,
+handed out in task order, and each fetch waiting on its own event only:
+device.py), frames them into fixed-size blocks and writes the
 footer. compress_file streams a memmapped input to a file; stats_out
 collects a CompressStats per writer. With cfg.data_shards > 1 every
 sub-block's rows split over that many devices (parallel/mesh.py
@@ -38,7 +40,7 @@ from phyngsc_tpu_torch.parallel.partition import (partition_regions,
 from phyngsc_tpu_torch.utils.fastq import FastqFormatError, index_records
 from phyngsc_tpu_torch.utils.logging import info
 from phyngsc_tpu_torch.utils.shapes import BucketCtx, bucket_length
-from phyngsc_tpu_torch.device import resolve
+from phyngsc_tpu_torch.device import StreamRing, resolve
 from phyngsc_tpu_torch.pipeline import subblock as sbmod
 
 
@@ -129,6 +131,10 @@ def encode_subblocks_pipelined(buf: np.ndarray, regions, cfg: CodecConfig,
     a_q: List = []  # [(writer_pos, Future[_StageA])]
     b_q: List = []  # [(writer_pos, Future[bytes])]
     n_tasks = 0
+    depth = max(cfg.pipeline_depth, 1)
+    # each sub-block's task streams, handed out in task order
+    ring = StreamRing(codec.devices if codec is not None else [device],
+                      depth + 1)
     workers = cfg.host_workers or (os.cpu_count() or 2)
     with cf.ThreadPoolExecutor(max_workers=max(2, workers)) as executor:
 
@@ -142,13 +148,12 @@ def encode_subblocks_pipelined(buf: np.ndarray, regions, cfg: CodecConfig,
             w, fc = b_q.pop(0)
             sink(w, fc.result())
 
-        depth = max(cfg.pipeline_depth, 1)
         for w, idx_slice in iter_subblock_tasks(buf, regions, cfg):
             n_tasks += 1
             rp = buckets.pick(idx_slice.n_records, G, n_shards)
             a_q.append((w, executor.submit(
                 _timed, "stage_a", w, sbmod.stage_a, buf, idx_slice, cfg,
-                device, executor, rp, codec)))
+                device, executor, rp, codec, ring.take())))
             if len(a_q) >= depth:
                 _advance_b()
             if len(b_q) >= depth:

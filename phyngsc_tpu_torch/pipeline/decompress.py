@@ -2,8 +2,11 @@
 
 Reads the footer, walks blocks in file order, stitches split sub-blocks,
 decodes each sub-block through the port's subblock stages (device dispatch
-on the calling thread, fetch + FASTQ reassembly on a thread pool, chunks
-completed in order) and places each chunk at its writer's output offset.
+on the calling thread, each sub-block on the streams of the next of
+pipeline_depth + 1 task slots, handed out in task order; fetch, which
+waits on its own sub-block's event only, + FASTQ reassembly on a thread
+pool, chunks completed in order) and places each chunk at its writer's
+output offset.
 decompress_file memmaps the container and pwrites each chunk at its
 absolute offset; writer_filter decodes only the chosen writers' blocks (the
 multi-process driver's share). With cfg.data_shards > 1 each sub-block's
@@ -26,6 +29,7 @@ import numpy as np
 from phyngsc_tpu_torch.config import CodecConfig
 from phyngsc_tpu_torch.container import block as blockmod
 from phyngsc_tpu_torch.container import footer as footermod
+from phyngsc_tpu_torch.device import StreamRing
 from phyngsc_tpu_torch.parallel.mesh import codec_for
 from phyngsc_tpu_torch.pipeline import subblock as sbmod
 from phyngsc_tpu_torch.utils.logging import info
@@ -99,13 +103,18 @@ def _decode_stream(data, foot: footermod.Footer, cfg: Optional[CodecConfig],
                 f"writer {w} decoded past its region ({cursor[w]} > {lim}): "
                 "corrupt container")
 
+    depth = max(cfg.pipeline_depth, 1)
+    # each sub-block's task streams, handed out in task order
+    ring = StreamRing(codec.devices if codec is not None else [device],
+                      depth + 1)
     workers = cfg.host_workers or (os.cpu_count() or 2)
     with cf.ThreadPoolExecutor(max_workers=max(2, workers)) as executor:
         for wid, payload in blockmod.iter_subblocks(blocks()):
             n_tasks += 1
-            st = sbmod.decode_stage_a(payload, cfg, device, executor, codec)
+            st = sbmod.decode_stage_a(payload, cfg, device, executor, codec,
+                                      ring.take())
             pending.append((wid, executor.submit(sbmod.decode_stage_b, st)))
-            if len(pending) >= max(cfg.pipeline_depth, 1):
+            if len(pending) >= depth:
                 _drain_one()
         while pending:
             _drain_one()

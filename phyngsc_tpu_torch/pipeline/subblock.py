@@ -26,8 +26,17 @@ length the container holds (up to 65535) is taken. With a
 parallel.mesh.ShardedSubblockCodec each stage runs per shard: stage A and
 B on each shard's Rp / n rows on its device (the raw planes uploaded, the
 counts summed), the decode on each shard's contiguous range of whole lanes
-(decode_lanes; the raw planes fetched). Under PHYNGSC_TIMING the stages
-add their seconds and the host<->device bytes to TIMING, with
+(decode_lanes; the raw planes fetched). Execution is asynchronous, as
+phyngsc_tpu's is (its jax.device_put and _host_async): a sub-block's
+device work runs on the task's streams (device.task_streams, handed out by
+the drivers; stage_a, stage_b's packing and decode_stage_a enter them,
+stage_c and decode_stage_b only wait on their fetches), every upload is one non-blocking copy from pinned staging
+(_to_device), and each fetch starts as soon as its producer is queued (the
+counts at the end of stage_a, the blobs at the end of stage_b and of
+decode_stage_a: device.fetch_async) and waits on its own event alone, so
+no host thread waits for another sub-block's work. encode_subblock /
+decode_subblock compose the stages as one task. Under PHYNGSC_TIMING the
+stages add their seconds and the host<->device bytes to TIMING, with
 phyngsc_tpu's labels.
 """
 
@@ -41,7 +50,9 @@ import torch
 
 from phyngsc_tpu_torch import kernels
 from phyngsc_tpu_torch.config import CodecConfig
-from phyngsc_tpu_torch.device import on_device
+from phyngsc_tpu_torch.device import (Staging, fetch_async, on_device,
+                                     resolve, task_streams, upload,
+                                     use_streams)
 from phyngsc_tpu_torch.utils.bitio import BitReader, BitWriter
 from phyngsc_tpu_torch.utils.fastq import FastqFormatError, RecordIndex
 from phyngsc_tpu_torch.utils.shapes import bucket_length, bucket_records
@@ -145,26 +156,23 @@ def _exact_cap(counts: np.ndarray, lens_tab: np.ndarray, S: int,
     return min(bits // 32 + S + 8, worst)
 
 
-def _to_device(a: np.ndarray, device) -> torch.Tensor:
+def _to_device(a, device):
+    """The sub-block's one funnel of host-to-device copies, each counted in
+    h2d_bytes: a host array, or a filled device.Staging (then its pieces
+    come back), in one copy (device.upload: non-blocking, from pinned
+    memory, on the current stream)."""
     _acct("h2d_bytes", a.nbytes)
-    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    if isinstance(a, Staging):
+        return a.send()
+    return upload([a], device)[0]
 
 
 def _upload_together(arrays, device) -> list:
     """Host arrays -> device tensors of the same dtypes and shapes, made by
-    one host-to-device copy: each array starts on a 16-byte boundary of one
-    uint8 buffer (the kernels load 16 bytes at a time)."""
-    offs, n = [], 0
-    for a in arrays:
-        offs.append(n)
-        n += -(-a.nbytes // 16) * 16
-    buf = np.zeros(n, np.uint8)
-    for a, o in zip(arrays, offs):
-        buf[o:o + a.nbytes] = np.ascontiguousarray(a).reshape(-1).view(
-            np.uint8)
-    dev = _to_device(buf, device)
-    return [dev[o:o + a.nbytes].view(torch.from_numpy(a[:0]).dtype).view(
-        a.shape) for a, o in zip(arrays, offs)]
+    one host-to-device copy: each array is written once, at a 16-byte
+    offset, into the pinned staging buffer (the kernels load 16 bytes at a
+    time)."""
+    return _to_device(Staging.of(arrays, device), device)
 
 
 def _upload_words(words: np.ndarray, device) -> torch.Tensor:
@@ -172,8 +180,10 @@ def _upload_words(words: np.ndarray, device) -> torch.Tensor:
     return _to_device(np.asarray(words, np.uint32).view(np.int32), device)
 
 
-def _fetch(t: torch.Tensor) -> np.ndarray:
-    a = t.cpu().numpy()
+def _fetch(p) -> np.ndarray:
+    """The host array of a device.Pending fetch, once its own event has
+    completed; counted in d2h_bytes."""
+    a = p.result()
     _acct("d2h_bytes", a.nbytes)
     return a
 
@@ -221,11 +231,15 @@ def _upload_packed(seq_np: np.ndarray, qual_np: np.ndarray,
     R, L = seq_np.shape
     s_mode, s_words = transfer.pack_seq_np(seq_np)
     q_mode, q_words = transfer.pack_qual_np(qual_np)
-    words = _upload_words(np.concatenate([s_words, q_words]), device)
+    ns = s_words.shape[0]
+    # both packers' words written straight into the pinned staging buffer
+    staged = Staging([((ns + q_words.shape[0],), np.int32)], device, align=4)
+    staged.views[0].view(np.uint32)[:ns] = s_words
+    staged.views[0].view(np.uint32)[ns:] = q_words
+    (words,) = _to_device(staged, device)
     lens = _record_lens(lens_np, Rp, device)
     planes = torch.zeros((2, Rp, L), dtype=torch.uint8, device=device)
     valid = quality.valid_mask(lens[:R], L)
-    ns = s_words.shape[0]
     planes[0, :R] = torch.where(
         valid, transfer.unpack_seq(words[:ns], s_mode, R, L), 0)
     planes[1, :R] = torch.where(
@@ -263,32 +277,40 @@ def encode_rows(qual_t, keep, seq, lens, tables, G: int, q_cap: int,
 
 
 class _StageA:
-    """Host gather + device analyze dispatched; counts_blob not fetched yet.
-    seq, lens, qual_t and keep are tensors, or with a codec lists of each
-    shard's rows on its device."""
+    """Host gather + device analyze dispatched on the task's streams
+    (device.task_streams, or None: the current streams), the counts'
+    fetch started (counts_blob, a device.Pending). seq, lens, qual_t and
+    keep are tensors, or with a codec lists of each shard's rows on its
+    device."""
 
     __slots__ = ("R", "Lt", "L", "Rp", "lens_np", "tlens_np", "titles_np",
                  "is_delta", "seq", "lens", "qual_t", "keep", "counts_blob",
-                 "n_q_counts", "t_future", "crc")
+                 "n_q_counts", "t_future", "crc", "streams")
 
 
 class _StageB:
-    """Tables built, stream packing dispatched: one blob a shard."""
+    """Tables built, stream packing dispatched, its fetch started: one
+    device.Pending blob a shard."""
 
     __slots__ = ("a", "q_tables", "d_plan", "t_enc", "blobs", "blob_layout")
 
 
 def stage_a(buf: np.ndarray, idx: RecordIndex, cfg: CodecConfig,
-            device, executor=None, rp=None, codec=None) -> _StageA:
+            device, executor=None, rp=None, codec=None,
+            streams=None) -> _StageA:
     """executor: optional ThreadPoolExecutor for the title encode. rp: the
     padded record count; the driver picks it from its shapes.BucketCtx on
     its own thread in task order (the picks depend on history, so output
     bytes would otherwise depend on timing). Default: bucket_records.
     codec: optional parallel.mesh.ShardedSubblockCodec; each shard's rows
-    then go to its own device (`device` is unused)."""
+    then go to its own device (`device` is unused). streams: the task's
+    streams (device.task_streams), on which the task's device work runs;
+    None: the current streams. The counts' fetch starts here, as soon as
+    the histograms are queued (phyngsc_tpu's _host_async)."""
     st = _StageA()
     st.t_future = None
     st.crc = None
+    st.streams = streams
     R = st.R = idx.n_records
     G = cfg.records_per_substream
     lens_np = st.lens_np = idx.seq_len.astype(np.int32)
@@ -327,7 +349,7 @@ def stage_a(buf: np.ndarray, idx: RecordIndex, cfg: CodecConfig,
         span = buf[int(idx.title_start[0]) : int(idx.qual_end[-1]) + 1]
         st.crc = zlib.crc32(np.ascontiguousarray(span))
 
-    def upload(dev, lo, rows):
+    def upload_rows(dev, lo, rows):
         """Rows lo .. lo + rows - 1: the raw planes (zero padding rows) and
         the lengths on dev, after the delta translation."""
         seq = _upload_rows(seq_np, lo, rows, dev)
@@ -337,27 +359,28 @@ def stage_a(buf: np.ndarray, idx: RecordIndex, cfg: CodecConfig,
             seq = dna.delta_translate(seq, lens)
         return seq, qual, lens
 
-    if codec is not None:
-        parts = []
-        for dev, lo, hi in codec.row_ranges(Rp):
-            with on_device(dev):
-                parts.append(upload(dev, lo, hi - lo))
-        st.seq, qual, st.lens = (list(x) for x in zip(*parts))
-        st.counts_blob, st.qual_t, st.keep = codec.analyze(
-            st.seq, qual, st.lens, int(seq_np.max(initial=0)) < 128)
-    else:
-        s_mode, planes, st.lens = _upload_packed(seq_np, qual_np, lens_np,
-                                                 Rp, device)
-        st.seq, qual = planes[0], planes[1]
-        if st.is_delta:
-            st.seq = dna.delta_translate(st.seq, st.lens)
-        # the histograms read the R live rows only (contiguous views): the
-        # padding rows' masks are zero, so the counts are the same
-        st.qual_t, st.keep, q_counts, d_counts = analyze_rows(
-            st.seq, qual, st.lens, transfer.seq_alpha_small(s_mode, seq_np),
-            R)
-        st.counts_blob = torch.cat([q_counts.reshape(-1),
-                                    d_counts.reshape(-1)])
+    with use_streams(streams):
+        if codec is not None:
+            parts = []
+            for dev, lo, hi in codec.row_ranges(Rp):
+                with on_device(dev):
+                    parts.append(upload_rows(dev, lo, hi - lo))
+            st.seq, qual, st.lens = (list(x) for x in zip(*parts))
+            counts, st.qual_t, st.keep = codec.analyze(
+                st.seq, qual, st.lens, int(seq_np.max(initial=0)) < 128)
+        else:
+            s_mode, planes, st.lens = _upload_packed(seq_np, qual_np,
+                                                     lens_np, Rp, device)
+            st.seq, qual = planes[0], planes[1]
+            if st.is_delta:
+                st.seq = dna.delta_translate(st.seq, st.lens)
+            # the histograms read the R live rows only (contiguous views):
+            # the padding rows' masks are zero, so the counts are the same
+            st.qual_t, st.keep, q_counts, d_counts = analyze_rows(
+                st.seq, qual, st.lens,
+                transfer.seq_alpha_small(s_mode, seq_np), R)
+            counts = torch.cat([q_counts.reshape(-1), d_counts.reshape(-1)])
+        st.counts_blob = fetch_async(counts)
     st.n_q_counts = min(L, quality.MAX_TREES) * quality.ALPHABET
     if executor is not None:
         st.t_future = executor.submit(title.encode, st.titles_np, tlens_np, cfg)
@@ -366,7 +389,8 @@ def stage_a(buf: np.ndarray, idx: RecordIndex, cfg: CodecConfig,
 
 def stage_b(a: _StageA, cfg: CodecConfig, codec=None) -> _StageB:
     """codec: the parallel.mesh.ShardedSubblockCodec stage A ran with, if
-    any."""
+    any. The packing runs on stage A's task streams; the blobs' fetches
+    start as soon as it is queued."""
     t0 = time.perf_counter() if TIMING is not None else 0.0
     st = _StageB()
     st.a = a
@@ -407,13 +431,15 @@ def stage_b(a: _StageA, cfg: CodecConfig, codec=None) -> _StageB:
     d_cap = _exact_cap(d_counts, st.d_plan.lens_tab if huffman_dna
                        else np.full(256, 2, np.int64), S, worst)
     args = (G, q_cap, d_cap, st.d_plan.mode, q_group, d_group, q_off, d_off)
-    if codec is not None:
-        st.blobs = codec.encode(a.qual_t, a.keep, a.seq, a.lens, tables,
-                                *args)
-    else:
-        st.blobs = [encode_rows(a.qual_t, a.keep, a.seq, a.lens,
-                                _upload_together(tables, a.seq.device),
-                                *args)]
+    with use_streams(a.streams):
+        if codec is not None:
+            blobs = codec.encode(a.qual_t, a.keep, a.seq, a.lens, tables,
+                                 *args)
+        else:
+            blobs = [encode_rows(a.qual_t, a.keep, a.seq, a.lens,
+                                 _upload_together(tables, a.seq.device),
+                                 *args)]
+        st.blobs = [fetch_async(b) for b in blobs]
     st.blob_layout = (q_cap, d_cap, rows // G)
     t0 = _tick("b.encode_dispatch", t0)
     # title is host-heavy: runs on a worker thread started in stage A (or
@@ -427,7 +453,7 @@ def stage_b(a: _StageA, cfg: CodecConfig, codec=None) -> _StageB:
 def stage_c(b: _StageB, cfg: CodecConfig) -> bytes:
     a = b.a
     t0 = time.perf_counter() if TIMING is not None else 0.0
-    # the stage-B fetch, one a shard
+    # the stage-B fetch, one a shard: each waits for its own event only
     blobs = [_fetch(x).view(np.uint32) for x in b.blobs]
     _tick("c.fetch", t0)
     nqw, ndw, S = b.blob_layout
@@ -713,9 +739,10 @@ def _pack_out(seq: torch.Tensor, qual: torch.Tensor, index_tab: torch.Tensor,
 
 
 class _DStage:
-    """Decode stage A result, pending fetch: the packed live rows (one
-    blob; out_meta an _OutMeta), or the restored (2, rows, L) planes of
-    each shard in row order (out_meta None)."""
+    """Decode stage A result, its fetch started (blobs: device.Pending, one
+    a shard): the packed live rows (one blob; out_meta an _OutMeta), or
+    the restored (2, rows, L) planes of each shard in row order (out_meta
+    None)."""
 
     __slots__ = ("R", "L", "lens_np", "titles_np", "tlens_np", "blobs", "crc",
                  "out_meta")
@@ -847,14 +874,19 @@ def _decode_device(p: _DParsed, cfg: CodecConfig, device,
 
 
 def decode_stage_a(data: bytes, cfg: CodecConfig, device,
-                   executor=None, codec=None) -> _DStage:
+                   executor=None, codec=None, streams=None) -> _DStage:
+    """Parse on the host, then dispatch the decode on the task's streams
+    (device.task_streams; None: the current streams) and start the fetch
+    of its output as soon as it is queued (phyngsc_tpu's _host_async)."""
     t0 = time.perf_counter() if TIMING is not None else 0.0
     p = _decode_parse(data, cfg, executor)
     t0 = _tick("d.parse", t0)
     st = _DStage()
     st.R, st.L, st.lens_np, st.crc = p.R, p.L, p.lens_np, p.crc
     st.titles_np, st.tlens_np = p.titles_np, p.tlens_np
-    st.blobs, st.out_meta = _decode_device(p, cfg, device, codec)
+    with use_streams(streams):
+        blobs, st.out_meta = _decode_device(p, cfg, device, codec)
+        st.blobs = [fetch_async(b) for b in blobs]
     _tick("d.device_dispatch", t0)
     return st
 
@@ -923,6 +955,24 @@ def decode_stage_b(st: _DStage) -> bytes:
                 "sub-block checksum mismatch: decoded bytes differ from the "
                 "original input (corrupt container or codec defect)")
     return out
+
+
+def encode_subblock(buf: np.ndarray, idx: RecordIndex, cfg: CodecConfig,
+                    device="cuda") -> bytes:
+    """One sub-block of records -> its bytes: the three stages composed
+    as one task on a stream of its own (phyngsc_tpu's encode_subblock; the
+    compress driver runs them software-pipelined across sub-blocks)."""
+    device = resolve(device)
+    a = stage_a(buf, idx, cfg, device, streams=task_streams([device]))
+    return stage_c(stage_b(a, cfg), cfg)
+
+
+def decode_subblock(data: bytes, cfg: CodecConfig, device="cuda") -> bytes:
+    """Inverse of encode_subblock -> FASTQ text bytes, one task on a stream
+    of its own (phyngsc_tpu's decode_subblock)."""
+    device = resolve(device)
+    return decode_stage_b(decode_stage_a(data, cfg, device,
+                                         streams=task_streams([device])))
 
 
 def _reassemble(R, lens_np, titles_np, tlens_np, seq_np, qual_np) -> bytes:

@@ -15,12 +15,23 @@ trips of every input class, also at G = 33 over L = 500 (K3), a sharded
 round trip on one card named twice, K1, K4 and K5 launched from a thread
 that never set its device, make_mesh past the visible cards, two
 processes of the multi-process driver on the card, the host<->device
-wire (ops/transfer's unpack, the packed decode fetch) on three corpora, and
-the round trips with the host runtime on one thread and on all.
+wire (ops/transfer's unpack, the packed decode fetch) on three corpora,
+the round trips with the host runtime on one thread and on all, and the
+asynchronous execution (device.py): an upload that does not wait for
+queued work and whose pinned staging is not handed out again while its
+copy is in flight, a fetch that waits on its own producer alone and
+releases the GIL while it waits, round trips that make no synchronizing
+call (torch.cuda.set_sync_debug_mode("error")), round trips whose task
+streams start behind a sleep (any op off its task's stream then races,
+and the container would differ from the JAX package's; also at two shards
+on two cards), eight threads uploading and fetching at once, and a
+compress that finds the device memory of its task slots' streams cached.
 Skipped without a CUDA device; on the card (which has no jax) run
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
+
+import time
 
 import numpy as np
 import pytest
@@ -821,7 +832,8 @@ def test_wire_on_card_matches_cpu(cuda, corpus):
         meta, want = on_card.out_meta, on_cpu.out_meta
         assert meta is not None and want is not None
         assert (meta.w, meta.q6, meta.qual8) == (want.w, want.q6, want.qual8)
-        assert torch.equal(on_card.blobs[0].cpu(), on_cpu.blobs[0])
+        np.testing.assert_array_equal(on_card.blobs[0].result(),
+                                      on_cpu.blobs[0].result())
     assert decompress_bytes(blob, cfg, device=cuda) == data
 
 
@@ -846,3 +858,240 @@ def test_round_trips_at_one_host_thread_and_all(cuda, corpus):
     assert len(blobs) == 2 or native.threads() == 1
     assert len(set(blobs.values())) == 1
     assert blobs[1] == compress_bytes(data, None, 1, device="cpu")
+
+
+#: cycles of torch.cuda._sleep that take tens of milliseconds on an H100
+SLEEP_CYCLES = 100_000_000
+
+
+def _slept_ms(stream) -> float:
+    """Queue SLEEP_CYCLES of sleep on `stream`; returns after the launch,
+    with the sleep's device ms measured by events (synchronizes)."""
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0.record(stream)
+    with torch.cuda.stream(stream):
+        torch.cuda._sleep(SLEEP_CYCLES)
+    t1.record(stream)
+    t1.synchronize()
+    return t0.elapsed_time(t1)
+
+
+def test_upload_does_not_wait(cuda):
+    """upload returns while a sleep runs ahead of its copy on its own
+    stream and on another; the pinned staging of a copy in flight is not
+    handed out again (a second upload of the same size, made at once, gets
+    other memory); both arrive intact."""
+    from phyngsc_tpu_torch.device import task_streams, upload
+
+    (stream,), other = task_streams([cuda]), torch.cuda.Stream(cuda)
+    sleep_ms = _slept_ms(stream)
+    assert sleep_ms > 20
+    rng = np.random.default_rng(11)
+    first = [rng.integers(0, 256, size=n, dtype=np.uint8) for n in
+             (1 << 20, 37, 4096)]
+    second = [rng.integers(0, 256, size=a.shape, dtype=np.uint8)
+              for a in first]
+    with torch.cuda.stream(stream):
+        upload(second, cuda)  # the staging block exists: no cudaHostAlloc
+        torch.cuda.synchronize()
+        with torch.cuda.stream(other):
+            torch.cuda._sleep(SLEEP_CYCLES)
+        torch.cuda._sleep(SLEEP_CYCLES)
+        t0 = time.perf_counter()
+        got = upload(first, cuda)
+        ms = (time.perf_counter() - t0) * 1e3
+        again = upload(second, cuda)
+    assert ms < 5, f"upload took {ms:.2f} ms behind a {sleep_ms:.1f} ms sleep"
+    torch.cuda.synchronize()
+    for a, t in zip(first + second, got + again):
+        np.testing.assert_array_equal(t.cpu().numpy(), a)
+
+
+def test_fetch_waits_on_its_own_producer(cuda):
+    """Pending.result() returns while a sleep still runs on another task's
+    stream, with the right bytes; and while it waits behind a sleep of its
+    own, another thread runs Python (the wait releases the GIL)."""
+    import threading
+
+    from phyngsc_tpu_torch.device import fetch_async, task_streams
+
+    (mine,), (theirs,) = task_streams([cuda], 0), task_streams([cuda], 1)
+    x = torch.arange(1 << 20, dtype=torch.int32, device=cuda)
+    torch.cuda.synchronize()
+    with torch.cuda.stream(theirs):
+        torch.cuda._sleep(4 * SLEEP_CYCLES)
+        other_done = torch.cuda.Event()
+        other_done.record(theirs)
+    with torch.cuda.stream(mine):
+        p = fetch_async(x * 3)
+    t0 = time.perf_counter()
+    got = p.result()
+    ms = (time.perf_counter() - t0) * 1e3
+    assert not other_done.query(), f"the fetch waited {ms:.1f} ms"
+    np.testing.assert_array_equal(got, np.arange(1 << 20, dtype=np.int32) * 3)
+
+    with torch.cuda.stream(mine):
+        torch.cuda._sleep(2 * SLEEP_CYCLES)
+        p = fetch_async(x)
+    started, waited = threading.Event(), threading.Event()
+
+    def wait():
+        started.set()
+        p.result()
+        waited.set()
+
+    t = threading.Thread(target=wait)
+    t.start()
+    started.wait(timeout=30)
+    ticks = 0
+    while not waited.is_set():  # runs only while the waiter has no GIL
+        ticks += 1
+    t.join(timeout=30)
+    assert not t.is_alive() and ticks > 1000
+
+
+def _err_and_variable():
+    return {"ERR005195": (synthesize_fastq(60000, read_len=36, seed=23,
+                                           ambiguity_rate=0.002), None),
+            "variable-length": (synthesize_fastq(
+                20000, read_len=100, seed=24, variable_length=True), None),
+            "2 shards": (synthesize_fastq(30000, read_len=36, seed=25),
+                         CodecConfig(data_shards=2))}
+
+
+#: a case of the 2-shard corpus run on two cards: the shards' task streams
+#: are on different devices, and the copies between them (the counts
+#: summed on the first card) are ordered on both
+TWO_CARDS = {"2 shards on 2 cards": "2 shards"}
+
+
+def _shard_devices(cuda, corpus, n_shards):
+    """The devices of a case: one card (named once a shard), or cards
+    0 and 1 for a TWO_CARDS case (skipped on one card)."""
+    if corpus not in TWO_CARDS:
+        return cuda if n_shards == 1 else [cuda] * n_shards
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    return [torch.device("cuda", 0), torch.device("cuda", 1)]
+
+
+@pytest.mark.parametrize("corpus", ["ERR005195", "variable-length",
+                                    "2 shards", "2 shards on 2 cards"])
+def test_round_trip_makes_no_synchronizing_call(cuda, corpus):
+    """compress_bytes -> decompress_bytes under
+    torch.cuda.set_sync_debug_mode("error"): no blocking copy, .item(),
+    nonzero or stream / device synchronize on any thread (the fetches wait
+    on events, which the mode does not flag); the CPU's container and the
+    input back."""
+    data, cfg = _err_and_variable()[TWO_CARDS.get(corpus, corpus)]
+    device = _shard_devices(cuda, corpus, 1 if cfg is None else 2)
+    want = compress_bytes(data, cfg, 1, device="cpu")
+    assert compress_bytes(data, cfg, 1, device=device) == want  # warm
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        blob = compress_bytes(data, cfg, 1, device=device)
+        back = decompress_bytes(blob, cfg, device=device)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert blob == want and back == data
+
+
+@pytest.mark.parametrize("corpus", ["ERR005195", "variable-length",
+                                    "2 shards", "2 shards on 2 cards"])
+def test_round_trips_with_delayed_task_streams(cuda, monkeypatch, corpus):
+    """The drivers' ring queues a sleep on each task's streams, and on the
+    legacy default stream of each of their devices, as it hands them out:
+    a device op of a task issued off its task's stream would then race
+    with the task's own work. The containers keep the JAX package's
+    SHA-256 (tests/torch_race_corpora.py) and the input comes back."""
+    import hashlib
+
+    from phyngsc_tpu_torch.device import StreamRing
+    from torch_race_corpora import CORPORA, SHA256, config
+
+    take = StreamRing.take
+
+    def delayed(self):
+        streams = take(self)
+        for s in streams:
+            with torch.cuda.stream(s):
+                torch.cuda._sleep(SLEEP_CYCLES // 20)
+            with torch.cuda.stream(torch.cuda.default_stream(s.device)):
+                torch.cuda._sleep(SLEEP_CYCLES // 40)
+        return streams
+
+    monkeypatch.setattr(StreamRing, "take", delayed)
+    name = TWO_CARDS.get(corpus, corpus)
+    data, cfg = CORPORA[name][0](), config(name)
+    device = _shard_devices(cuda, corpus, cfg.data_shards)
+    blob = compress_bytes(data, cfg, 1, device=device)
+    assert hashlib.sha256(blob).hexdigest() == SHA256[name]
+    assert decompress_bytes(blob, cfg, device=device) == data
+
+
+def test_threads_upload_and_fetch_through_the_pinned_pool(cuda):
+    """Eight threads, each on its own task stream behind short sleeps,
+    upload and fetch random arrays of every size class through the pinned
+    staging pool: every array comes back equal."""
+    import threading
+
+    from phyngsc_tpu_torch.device import (fetch_async, task_streams, upload,
+                                          use_streams)
+
+    errors, done = [], []
+
+    def worker(seed):
+        rng = np.random.default_rng(seed)
+        streams = task_streams([cuda], seed)
+        try:
+            with use_streams(streams):
+                for _ in range(30):
+                    n = int(rng.choice([0, 1, 37, 4096, 1 << 20]))
+                    arrays = [rng.integers(0, 256, size=n, dtype=np.uint8),
+                              rng.integers(-9, 9, size=n % 1000)]
+                    torch.cuda._sleep(int(rng.integers(0, SLEEP_CYCLES // 50)))
+                    pending = [fetch_async(t + 0) for t in upload(arrays,
+                                                                  cuda)]
+                    for a, p in zip(arrays, pending):
+                        if not np.array_equal(p.result(), a):
+                            errors.append(seed)
+            done.append(seed)
+        except Exception as e:  # reported below, with the seed
+            errors.append((seed, repr(e)))
+
+    threads = [threading.Thread(target=worker, args=(s,)) for s in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads)
+    assert not errors and sorted(done) == list(range(8))
+
+
+def test_task_slots_reuse_device_memory(cuda, monkeypatch):
+    """A compress after two others makes no cudaMalloc: the task slots'
+    streams are the same all through the process, and the caching
+    allocator finds the memory it keeps for each. Fresh streams for every
+    call (task_streams with no slot made yet) find none and allocate
+    anew, which is why the slots are kept."""
+    from phyngsc_tpu_torch import device as devmod
+
+    data = synthesize_fastq(60000, read_len=36, seed=23,
+                            ambiguity_rate=0.002)
+    cfg = CodecConfig(subblock_input_bytes=256 << 10)
+
+    def allocs():
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_stats(cuda)["num_device_alloc"]
+        compress_bytes(data, cfg, 1, device=cuda)
+        torch.cuda.synchronize()
+        return torch.cuda.memory_stats(cuda)["num_device_alloc"] - before
+
+    allocs(), allocs()
+    kept = allocs()
+    monkeypatch.setattr(devmod, "_SLOTS", {})
+    fresh = allocs()
+    print(f"cudaMalloc calls of one compress: kept slots {kept}, fresh "
+          f"streams {fresh}")
+    assert kept == 0 < fresh

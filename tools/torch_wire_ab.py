@@ -11,8 +11,15 @@ compares two trees in turns): it builds its kernels and its host runtime
 (and notes the runtime's library and T), makes the ERR005195 36 bp corpus
 of chip_smoke.py (synthesize_fastq, seed 5, about --mb MB), runs one
 untimed round trip (compress_bytes -> decompress_bytes on cuda,
-byte-identical), then --reps timed ones, then one under PHYNGSC_TIMING=1;
-then times stage A of the corpus's first sub-block alone (stage_a and a
+byte-identical), then --reps timed ones, then one under PHYNGSC_TIMING=1,
+then one compress and one decompress under torch.profiler (CPU and CUDA
+activities), read by this tree's utils/logging.py device_activity (loaded
+from its file, since the tree measured may predate it) from the Chrome
+trace: the card's busy share over each call's wall (the union of its
+kernel, copy and memset intervals), the calling thread's time in CPU ops,
+and the seconds the calling thread spent in cudaStreamSynchronize /
+cudaEventSynchronize / cudaDeviceSynchronize, by enclosing op; then times
+stage A of the corpus's first sub-block alone (stage_a and a
 synchronize, the median of --reps + 2 calls) and, where the tree has
 ops/transfer, its host packers on that sub-block's planes. Prints one JSON
 line a tree (its MB/s, the stage split and the h2d / d2h bytes of both
@@ -29,12 +36,26 @@ from __future__ import annotations
 
 import argparse
 import importlib
+import importlib.util
 import json
 import os
 import statistics
 import subprocess
 import sys
 import time
+
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def device_activity():
+    """utils/logging.py device_activity of this tool's own tree."""
+    spec = importlib.util.spec_from_file_location(
+        "_ab_logging", os.path.join(HERE, "phyngsc_tpu_torch", "utils",
+                                    "logging.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.device_activity
 
 
 def one(tree: str, mb: float, reps: int) -> dict:
@@ -95,6 +116,21 @@ def one(tree: str, mb: float, reps: int) -> dict:
         dec = dict(subblock.TIMING)
     finally:
         del os.environ["PHYNGSC_TIMING"]
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    activity, profiled = device_activity(), {}
+    trace = os.path.join(HERE, "build", "torch_wire_ab_trace.json")
+    os.makedirs(os.path.dirname(trace), exist_ok=True)
+    for side, call in (
+            ("compress", lambda: compress_bytes(data, cfg, 1, device=dev)),
+            ("decompress", lambda: decompress_bytes(blob, cfg, device=dev))):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            with record_function(f"ab.{side}"):
+                call()
+                torch.cuda.synchronize()
+        profiled[side] = activity(prof, f"ab.{side}", trace)
+        os.remove(trace)
     return {**first_subblock_ms(data, cfg, dev, reps + 2),
             "tree": label, "host_runtime": host_lib,
             "host_threads": host_threads, "cpu_count": os.cpu_count(),
@@ -102,7 +138,8 @@ def one(tree: str, mb: float, reps: int) -> dict:
             "container_bytes": len(blob),
             "compress_mbps": [r[0] for r in runs],
             "decompress_mbps": [r[1] for r in runs],
-            "compress_timing": enc, "decompress_timing": dec}
+            "compress_timing": enc, "decompress_timing": dec,
+            "profiled": profiled}
 
 
 def first_subblock_ms(data: bytes, cfg, dev, reps: int) -> dict:
@@ -164,6 +201,10 @@ def summary(results: list) -> dict:
         for side in ("compress_timing", "decompress_timing"):
             row[side] = {k: statistics.median(r[side][k] for r in mine)
                          for k in mine[0][side]}
+        if all("profiled" in r for r in mine):
+            for key in ("busy_share", "calling_op_s", "wall_s"):
+                row[key] = {side: [r["profiled"][side][key] for r in mine]
+                            for side in ("compress", "decompress")}
         out[tree] = row
     return out
 
