@@ -19,13 +19,18 @@ Phases (any failure exits non-zero):
      leave some prefixes no room in shared memory, the walks of the last
      two against the sub-block's own quality symbols, since the plain walk
      would take minutes; the walks on the word plane K5 builds, with the
-     two-level shared-memory tables the decode builds);
+     two-level shared-memory tables the decode builds); K6 (the decode's
+     walk tables from code lengths) on the quality tables of the 36 bp,
+     1000 bp, variable 100 bp and 65,532 bp sub-blocks (the last with the
+     shared block of escapes), the SRR corpus's Huffman DNA table and the
+     36 bp trees with every third a singleton: its full LUTs and two-level
+     table;
      K5 also on lane tables of 16,384 and 131,072 lanes (G = 8 and
      G = 1 over short reads); results must be exactly equal; times are
      CUDA-event medians of one call, each call timed alone after a
      synchronize. Beside each case: library_ms, one PyTorch call computing
      the same function (torch.bincount for K1, advanced indexing for K4,
-     torch.gather for K5, none for the walks), checked equal too and timed
+     torch.gather for K5, none for the walks and K6), checked equal too and timed
      the same way, and bound_ms, the least time the card could take (bytes
      read once and written once at 3.35 TB/s, or the operations at
      67 T/s, whichever is larger), with the walks' chain floor (their
@@ -44,8 +49,9 @@ Phases (any failure exits non-zero):
      1000 bp reads, SOLiD colour-space reads, variable 5.4 kbp reads whose
      lanes hold more than 2^16 words and 65,532 bp reads, each
      byte-identical, with
-     every kernel variant launched, K5 twice per decoded sub-block, and no
-     plain version run on a CUDA tensor; each corpus's wire modes are
+     every kernel variant launched, K5 twice per decoded sub-block, K6
+     once per walk that reads tables (the decode builds them on the card
+     from the code lengths), and no plain version run on a CUDA tensor; each corpus's wire modes are
      printed (the sub-blocks' upload packing of DNA and quality, and their
      decode fetch: qual8, restored symbols at w bits, or raw planes);
   4. the file entry points: compress_file -> decompress_file of the
@@ -55,7 +61,8 @@ Phases (any failure exits non-zero):
   4b. the sharded and multi-process paths: the ERR005195 corpus at
      data_shards=2 on [cuda:0, cuda:0], byte-identical and with phase 3's
      1-shard container, every kernel launched once per shard per sub-block
-     (K1 and K5 twice), and variable-length 100 bp reads at data_shards=3
+     (K1 and K5 twice; K6 builds each shard's tables on its device), and
+     variable-length 100 bp reads at data_shards=3
      (an odd lane split); then `python3 -m
      phyngsc_tpu_torch.parallel.distributed` as two processes on the card
      (gloo metadata), compress and --decompress of the ERR file, each
@@ -117,7 +124,7 @@ from phyngsc_tpu_torch import (CodecConfig, host_runtime, kernels,  # noqa: E402
                                synthesize_fastq)
 from phyngsc_tpu_torch.models import dna, quality, title  # noqa: E402
 from phyngsc_tpu_torch.ops import (bitpack, bitpack_host, histogram,  # noqa: E402
-                                   lookup, transfer)
+                                   lookup, tables, transfer)
 from phyngsc_tpu_torch.pipeline import compress, subblock  # noqa: E402
 from phyngsc_tpu_torch.pipeline.decompress import (  # noqa: E402
     decompress_bytes, decompress_file)
@@ -152,12 +159,17 @@ KERNELS = {
                   "phyngsc_tpu/ops/lookup.py:214"),
     "k5_densify": ("phyngsc_tpu_torch/csrc/densify.cu",
                    "phyngsc_tpu/ops/bitpack.py:870"),
+    # the port of an XLA function, not of a pallas_call: the JAX package's
+    # decode builds its tables on the device from the code lengths
+    "k6_tables": ("phyngsc_tpu_torch/csrc/tables.cu",
+                  "phyngsc_tpu/ops/bitpack.py:1081"),
 }
 #: each kernel's __global__ function, as torch.profiler names it
 KERNEL_FN = {"k1_histogram": "hist_kernel",
              "k2_walk_uniform": "walk_uniform_kernel",
              "k3_walk_masked": "walk_masked_kernel",
-             "k4_lookup": "lookup_kernel", "k5_densify": "densify_kernel"}
+             "k4_lookup": "lookup_kernel", "k5_densify": "densify_kernel",
+             "k6_tables": "tables_kernel"}
 #: the H100's memory rate, and the rate taken for the kernels' scalar
 #: integer operations (its float32 peak outside the tensor cores)
 HBM_BYTES_PER_S = 3.35e12
@@ -177,7 +189,7 @@ SEQ_MODES = {transfer.SEQ_RAW: "raw", transfer.SEQ_2BIT: "2-bit",
 QUAL_MODES = {transfer.QUAL_RAW: "raw", transfer.QUAL_6BIT: "6-bit"}
 #: the kernels (and K3 variants) that the ERR005195 36 bp path launches
 ERR_PATH = ("k1_histogram", "k2_walk_uniform", "k3_walk_masked/plain2",
-            "k4_lookup", "k5_densify")
+            "k4_lookup", "k5_densify", "k6_tables")
 
 
 def require(cond: bool, what: str) -> None:
@@ -375,15 +387,19 @@ def bound(nbytes: int, ops: int = 0) -> dict:
 
 
 def compare(kernel: str, name: str, kernel_fn, plain_fn, reps: int,
-            plain_reps: int, work: dict, library_fn=None, extra=None):
+            plain_reps: int, work: dict, library_fn=None, extra=None,
+            join=None):
     """kernel_fn (a launch of `kernel`) against plain_fn on the card: exact
     equality, then the CUDA-event median of one call of each, and of
     library_fn (one PyTorch call of the same function, also held equal)
     where there is one, each timed alone. work: bound() of the case's
-    inputs. The kernel's own device time comes
+    inputs. join: one tensor of a kernel's several outputs, for the
+    comparison only. The kernel's own device time comes
     later (phase_device_times), from `_probe`."""
     got = kernel_fn()
     ref = plain_fn()
+    if join is not None:
+        got, ref = join(got), join(ref)
     torch.cuda.synchronize()
     require(got.shape == ref.shape, f"{name}: shape {tuple(got.shape)} != "
             f"{tuple(ref.shape)}")
@@ -667,6 +683,48 @@ def phase_kernels(dev) -> dict:
             "65,532 bp quality lookup is not one L = 65532 table of trees")
     k4(f"k4 quality L=65532 T={tab.shape[0]} A={tab.shape[1]}",
        *reads.lookups[0])
+
+    def k6(name, build):
+        """K6 on a stream's code lengths as the decode uploads them (build()
+        gives subblock.decode_wires' LensWire: the lens4 words and the
+        host's layout rows), against its plain version on the card (the
+        full LUTs and the two-level table, exact); bound: the words and
+        rows read, the tables written; wire_ms: the host time of build()."""
+        wire = build()
+        words, rows = subblock._upload_together(wire.pieces(), dev)
+        lay, T = wire.layout, wire.n_trees
+
+        def tabs(build):
+            return lambda: (lambda wl: (wl.full, wl.packed))(
+                build(wire, words, rows))
+
+        cases["k6_tables"].append(compare(
+            "k6_tables", name, tabs(tables.walk_luts),
+            tabs(tables.walk_luts_plain), 200, 5,
+            bound(4 * (words.numel() + rows.numel() + T * (1 << bits))
+                  + 2 * lay.n),
+            extra={"trees": T, "k": lay.k, "entries": lay.n,
+                   "blocks": lay.n_blocks, "own_blocks": lay.own,
+                   "wire_ms": host_ms(build, 200)},
+            join=lambda o: torch.cat([o[0].reshape(-1).long(),
+                                      o[1].long()])))
+        return lay
+
+    k6("k6 ERR quality", lambda: subblock.decode_wires(err.p, err.cfg)[0])
+    k6("k6 1000 bp quality",
+       lambda: subblock.decode_wires(long_.p, long_.cfg)[0])
+    k6("k6 variable 100 bp quality",
+       lambda: subblock.decode_wires(var.p, var.cfg)[0])
+    k6("k6 DNA huffman", lambda: subblock.decode_wires(srr.p, srr.cfg)[1])
+    lens = err.p.q_tables.lens.copy()
+    sing = err.p.q_tables.singletons.copy()
+    lens[::3], sing[::3] = 0, 40 + np.arange(lens[::3].shape[0])
+    k6("k6 ERR quality, every third tree a singleton",
+       lambda: tables.lens_wire(lens, sing, bits, max(err.p.Lt, 1)))
+    lay = k6("k6 65,532 bp quality (shared block)",
+             lambda: subblock.decode_wires(reads.p, reads.cfg)[0])
+    require(lay.k > 0 and lay.n_blocks > lay.own,
+            "the 65,532 bp tables have no shared block of escapes")
     walks = cases["k2_walk_uniform"] + cases["k3_walk_masked"]
     require(any(c["k"] is not None and c["k"] < bits for c in walks)
             and any(c["k"] == bits for c in walks),
@@ -932,15 +990,20 @@ def round_trip(data: bytes, dev, what: str, shards: int = 1) -> dict:
                                        stats_out=stats)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        k5_before = kernels.LAUNCHES["k5_densify"]
+        before = dict(kernels.LAUNCHES)
         back = decompress_bytes(comp, cfg, device=device)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
     require(back == data, f"{what}: round trip is not byte-identical")
     n_sub = sum(s.n_subblocks for s in stats)
-    k5 = kernels.LAUNCHES["k5_densify"] - k5_before
+    run = {k: v - before[k] for k, v in kernels.LAUNCHES.items()}
+    k5, k6 = run["k5_densify"], run["k6_tables"]
     require(k5 == 2 * shards * n_sub, f"{what}: K5 launched {k5} times for "
             f"{n_sub} decoded sub-blocks of {shards} shards, not twice each")
+    walks = (run["k2_walk_uniform"] + run["k3_walk_masked/quality"]
+             + run["k3_walk_masked/huffman"])
+    require(k6 == walks > 0, f"{what}: K6 launched {k6} times for {walks} "
+            "walks with tables")
     mb = len(data) / 1e6
     res = {"sha256": hashlib.sha256(comp).hexdigest(), "subblocks": n_sub,
            "compress_mbps": mb / (t1 - t0), "decompress_mbps": mb / (t2 - t1)}
@@ -948,7 +1011,7 @@ def round_trip(data: bytes, dev, what: str, shards: int = 1) -> dict:
           f"{len(data) / len(comp):.4f}, compress {res['compress_mbps']:.2f} "
           f"MB/s ({t1 - t0:.3f} s), decompress {res['decompress_mbps']:.2f} "
           f"MB/s ({t2 - t1:.3f} s), byte-identical, {n_sub} sub-blocks, "
-          f"{shards} shard(s), {k5} K5 launches", flush=True)
+          f"{shards} shard(s), {k5} K5 and {k6} K6 launches", flush=True)
     print(f"wire modes {what}: {json.dumps(modes.counts())}", flush=True)
     return res
 
@@ -1080,7 +1143,8 @@ def phase_sharded(dev, err: bytes, err_result: dict) -> dict:
     n = 2 * res["subblocks"]  # (shard, sub-block) pairs
     want = {"k1_histogram": 2 * n, "k2_walk_uniform": n, "k5_densify": 2 * n,
             "k3_walk_masked": n,
-            "k4_lookup": n + launches["k3_walk_masked/huffman"]}
+            "k4_lookup": n + launches["k3_walk_masked/huffman"],
+            "k6_tables": n}
     require(all(launches[k] == v for k, v in want.items()),
             f"sharded path: launches {launches} are not once per shard per "
             f"sub-block ({want})")

@@ -1,5 +1,5 @@
 """Build, bind and launch the hand-written CUDA kernels (csrc/*.cu): K1
-histogram, K2/K3 walks, K4 lookup, K5 densify.
+histogram, K2/K3 walks, K4 lookup, K5 densify, K6 decode tables.
 
 The sources compile at first use with nvcc into one shared library with a
 plain C interface under build/kernels/ (named by a hash of the sources, so a
@@ -78,9 +78,10 @@ def lookup_smem(T: int, A: int, n_ids: int) -> int:
 
 LAUNCHES = {"k1_histogram": 0, "k2_walk_uniform": 0, "k3_walk_masked": 0,
             "k3_walk_masked/plain2": 0, "k3_walk_masked/huffman": 0,
-            "k3_walk_masked/quality": 0, "k4_lookup": 0, "k5_densify": 0}
+            "k3_walk_masked/quality": 0, "k4_lookup": 0, "k5_densify": 0,
+            "k6_tables": 0}
 PLAIN_ON_CUDA = {"k1_histogram": 0, "k2_walk_uniform": 0, "k3_walk_masked": 0,
-                 "k4_lookup": 0, "k5_densify": 0}
+                 "k4_lookup": 0, "k5_densify": 0, "k6_tables": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -96,6 +97,7 @@ _SIGNATURES = {
                             _P, _I, _I, _I, _I, _P, _P],
     "phyngsc_lookup": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
     "phyngsc_densify": [_P, _I64, _P, _I, _I, _I, _P, _P],
+    "phyngsc_tables": [_P, _I, _I, _P, _I, _I, _I, _I, _P, _P, _P],
 }
 
 
@@ -391,3 +393,41 @@ def densify(words: torch.Tensor, lanes: torch.Tensor, Wmax: int,
     _check(rc, "k5_densify")
     _count(LAUNCHES, "k5_densify")
     return out
+
+
+def decode_tables(words: torch.Tensor, n_trees: int, lut_bits: int,
+                  layout, k: int, own: int, n_blocks: int, n: int) -> tuple:
+    """K6: a stream's walk tables from its (n_trees * 33,) int32 lens4
+    words (ops/bitpack_host.py pack_lens4_np) -> (full (n_trees,
+    2^lut_bits) int32 LUTs of (len << 9) | sym, packed (n,) int16 holding
+    the uint16 two-level table of ops/bitpack.py two_level_luts). k, own,
+    n_blocks, n and layout, the (3, n_trees) int32 per-tree rows, are the
+    host's ops/tables.py Layout of the same lengths (layout None and n = 0
+    when k = 0). One launch, a block a tree."""
+    _require(words, "lens words", torch.int32)
+    if (words.shape != (33 * n_trees,) or not 1 <= n_trees < 1 << 16
+            or not 1 <= lut_bits <= 16 or not 0 <= k <= lut_bits):
+        raise ValueError(f"decode_tables: {tuple(words.shape)} words for "
+                         f"{n_trees} trees, lut_bits={lut_bits} k={k}")
+    d = lut_bits - k
+    used = (n_trees << k) + (n_blocks << d)
+    if k == 0:
+        ok = n == own == n_blocks == 0 and layout is None
+    else:
+        _require(layout, "layout", torch.int32)
+        ok = (layout.shape == (3, n_trees)
+              and layout.get_device() == words.get_device()
+              and 0 <= own <= n_blocks <= own + 1 and n == -(-used // 8) * 8)
+    if not ok:
+        raise ValueError(f"decode_tables: bad layout k={k} own={own} "
+                         f"blocks={n_blocks} entries={n}")
+    full = torch.empty((n_trees, 1 << lut_bits), dtype=torch.int32,
+                       device=words.device)
+    packed = torch.empty(n, dtype=torch.int16, device=words.device)
+    rc = _launch(_bound().phyngsc_tables, full, words.data_ptr(), n_trees,
+                 lut_bits, None if layout is None else layout.data_ptr(), k,
+                 own, n_blocks, n, full.data_ptr(),
+                 packed.data_ptr() if n else None)
+    _check(rc, "k6_tables")
+    _count(LAUNCHES, "k6_tables")
+    return full, packed

@@ -11,8 +11,9 @@ tensors take the plain versions, the walks stepping all lanes in lockstep,
 one step per loop iteration. The walks take their LUTs as WalkLuts
 (walk_luts): the full int32 tables, which the plain versions read, and, for
 CUDA tensors, the 16-bit two-level tables that the kernels stage in shared
-memory (two_level_luts), built on the host from the host LUTs
-(walk_tables). Words travel as int32 tensors holding the uint32 bits, and
+memory (two_level_luts): the decode builds both on the device from the
+code lengths (ops/tables.py, K6), the models' callers on the host from
+host LUTs (walk_tables). Words travel as int32 tensors holding the uint32 bits, and
 are widened to int64 for bit work.
 """
 
@@ -276,8 +277,8 @@ def walk_tables(luts, lut_bits: int, cuda: bool, n_ids: int = 1) -> tuple:
 def walk_luts(luts, lut_bits: int, device, n_ids: int = 1) -> WalkLuts:
     """Host LUTs -> WalkLuts on `device`: walk_tables' tables, built on
     the host and uploaded, so that nothing waits on the device. A WalkLuts
-    (the decode's, expanded on the device from its one upload) is taken as
-    it is."""
+    (the decode's, built on the device by ops/tables.py) is taken as it
+    is."""
     if isinstance(luts, WalkLuts):
         return luts
     full, packed, k, n_primary = walk_tables(

@@ -1,8 +1,9 @@
 """Host (numpy) bit-packing twins used by the title codec and the decoders.
 
-Copied from phyngsc_tpu/ops/bitpack.py:303-432 (verbatim) and 1039-1048 (the
-walk plane's geometry, its padding made constants), host code in a module
-that imports jax; the port never imports jax, so it keeps the copy.
+Copied from phyngsc_tpu/ops/bitpack.py:303-432 (verbatim), 1039-1048 (the
+walk plane's geometry, its padding made constants) and 1060-1078
+(pack_lens4_np, the decode tables' wire form, verbatim), host code in a
+module that imports jax; the port never imports jax, so it keeps the copy.
 """
 
 from __future__ import annotations
@@ -158,3 +159,25 @@ def dense_geometry(sub_n_words: np.ndarray) -> tuple:
     Wmax = max(int(sub.max()) if S else 0, 1)
     Wmax = -(-Wmax // ROW_BUCKET) * ROW_BUCKET
     return Wmax, Sp
+
+
+# copied from phyngsc_tpu/ops/bitpack.py:1060-1078 (ops/tables.py uploads it)
+def pack_lens4_np(lens2d: np.ndarray, singletons: np.ndarray) -> np.ndarray:
+    """Decode-table wire form: (T, 256) code lengths as packed 4-bit
+    nibbles (MSB-first) + per-tree singleton symbols — T*33 uint32 words,
+    ~8x smaller than run words and ~120x smaller than the int16 planes.
+    luts_from_lens_device is the exact device inverse (the planes are a
+    pure function of canonical lengths)."""
+    lens = np.asarray(lens2d, np.uint32)
+    T = lens.shape[0]
+    assert lens.shape[1] == 256, \
+        "lens4 wire form requires 256-symbol alphabets"
+    if not (lens < 16).all():
+        # guards untrusted container data (load_table admits nibble+1 = 16),
+        # so this must survive python -O and raise per the ValueError contract
+        raise ValueError("corrupt table: code length >= 16")
+    nib = lens.reshape(T, 32, 8)
+    shifts = (28 - 4 * np.arange(8, dtype=np.uint32))
+    words = (nib << shifts[None, None, :]).sum(axis=2, dtype=np.uint32)
+    singles = np.asarray(singletons, np.int32).view(np.uint32)
+    return np.concatenate([words.reshape(-1), singles])

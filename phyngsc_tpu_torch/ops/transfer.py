@@ -9,11 +9,8 @@ values a word, value j in bits [32 - w(j+1), 32 - wj), so a value never
 straddles two words. pack_lanes writes the same layout on the device, at
 the widths of the decode's packed fetch.
 
-Decode upload: each walk table travels as runs (table_runs_np: the value
-and the length of each run of equal entries), which the device expands to
-the table itself (expand_runs). A canonical-code LUT row is a few dozen
-runs of up to 4,096 entries, so its runs are a few hundred bytes where the
-table is 16 KB.
+Decode upload: the walk tables travel as their code lengths (ops/tables.py
+lens_wire, 132 bytes a tree), from which the device builds them.
 
 Words travel as int32 tensors holding the uint32 bits. torch's >> on int32
 is arithmetic, so every shift is followed by a mask: the masked bits lie
@@ -227,24 +224,3 @@ def pack_lanes(vals: torch.Tensor, w: int) -> torch.Tensor:
     words = (v.reshape(-1, per) << _shifts(w, v.device).long()).sum(dim=1)
     return words.to(torch.int32)
 
-
-def table_runs_np(table: np.ndarray) -> np.ndarray:
-    """A host table (any shape, integer entries that fit int32) as its runs
-    of equal entries in flat order: (2, n_runs) int32, row 0 the runs'
-    values, row 1 their lengths. expand_runs is the inverse."""
-    flat = np.ascontiguousarray(table).reshape(-1).astype(np.int32)
-    if not flat.size:
-        return np.zeros((2, 0), np.int32)
-    starts = np.flatnonzero(np.concatenate([[True], flat[1:] != flat[:-1]]))
-    out = np.empty((2, starts.shape[0]), np.int32)
-    out[0] = flat[starts]
-    out[1] = np.diff(np.append(starts, flat.size))
-    return out
-
-
-def expand_runs(runs: torch.Tensor, n: int, dtype=torch.int32) -> torch.Tensor:
-    """(2, n_runs) int32 runs from table_runs_np on the device -> the flat
-    (n,) table of `dtype`. The output size is given, so nothing waits on
-    the device."""
-    return torch.repeat_interleave(runs[0], runs[1].long(),
-                                   output_size=n).to(dtype)

@@ -215,12 +215,13 @@ class ShardedSubblockCodec:
         return [(dev, s0, s1) for dev, (s0, s1)
                 in zip(self.devices, _split(S, self.n_data)) if s1 > s0]
 
-    def decode_walk(self, p, cfg: CodecConfig, q_luts: np.ndarray) -> list:
+    def decode_walk(self, p, cfg: CodecConfig, wires: tuple) -> list:
         """The restored (2, rows, L) planes of each shard's lanes of a
         parsed sub-block (subblock.decode_lanes), on its device, in row
-        order."""
+        order. wires: subblock.decode_wires, the code lengths that each
+        shard uploads and builds its walk tables from on its own device."""
         out = []
         for dev, s0, s1 in self.lane_ranges(p.q_sub.shape[0]):
             with on_device(dev):
-                out.append(subblock.decode_lanes(p, cfg, dev, s0, s1, q_luts))
+                out.append(subblock.decode_lanes(p, cfg, dev, s0, s1, wires))
         return out

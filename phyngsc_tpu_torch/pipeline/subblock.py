@@ -13,9 +13,11 @@ builds and fuses the code tables on the host, uploads them in one copy and
 packs both streams on the device (code lookups on K4) into one blob of
 32-bit words; stage_c fetches it and assembles the sections. Decode:
 _decode_parse is host code; decode_stage_a uploads the sub-block's
-inputs in one copy (the linear word streams, their lane tables, the walk
-tables as runs, the lengths when they vary, the output alphabet's index
-table), lays each stream out as its (Wmax, Sp) word plane (K5), decodes
+inputs in one copy (the linear word streams, their lane tables, the code
+lengths of the walk tables as nibbles, the lengths when they vary, the
+output alphabet's index table), builds the walk tables there from the
+code lengths (K6), lays each stream out as its (Wmax, Sp) word plane
+(K5), decodes
 quality (K2 for uniform lengths, K3 with per-position trees for variable
 lengths) then DNA (K3) from the planes, and packs the live rows for the
 fetch: kept-symbol indices and raw qualities (qual8 mode), or restored
@@ -57,7 +59,7 @@ from phyngsc_tpu_torch.utils.bitio import BitReader, BitWriter
 from phyngsc_tpu_torch.utils.fastq import FastqFormatError, RecordIndex
 from phyngsc_tpu_torch.utils.shapes import bucket_length, bucket_records
 from phyngsc_tpu_torch.models import dna, quality, title
-from phyngsc_tpu_torch.ops import bitpack, lookup, transfer
+from phyngsc_tpu_torch.ops import bitpack, lookup, tables, transfer
 from phyngsc_tpu_torch.ops.bitpack_host import bytes_to_words, words_to_bytes
 
 FLAG_VARIABLE_LENGTH = 1
@@ -752,52 +754,42 @@ class _DStage:
 _NONE = np.zeros(0, np.uint8)
 
 
-def _runs(table) -> np.ndarray:
-    """A walk table as the decode uploads it (transfer.table_runs_np)."""
-    return _NONE if table is None else transfer.table_runs_np(table)
-
-
-def _walk_luts_up(tabs: tuple, full_runs: torch.Tensor,
-                  packed_runs: torch.Tensor,
-                  lut_bits: int) -> bitpack.WalkLuts:
-    """bitpack.walk_tables' host tables (tabs) -> the WalkLuts of the same
-    tables on the device, expanded there from their uploaded runs."""
-    full, packed, k, n_primary = tabs
-    wl = bitpack.WalkLuts(
-        transfer.expand_runs(full_runs, full.size).view(full.shape), lut_bits)
-    if packed is not None:
-        wl.packed = transfer.expand_runs(packed_runs, packed.size, torch.int16)
-        wl.k, wl.n_primary = k, n_primary
-    return wl
+def decode_wires(p: _DParsed, cfg: CodecConfig) -> tuple:
+    """The decode tables of a parsed sub-block as its upload carries them
+    (ops/tables.py lens_wire: the lens4 words and the host's two-level
+    layout): (quality, DNA or None in plain mode). Corrupt lengths raise
+    here, before anything is uploaded."""
+    bits = cfg.max_code_len
+    q = tables.lens_wire(p.q_tables.lens, p.q_tables.singletons, bits,
+                         kernels.masked_ids(p.L) if p.variable
+                         else max(p.Lt, 1))
+    d = (tables.lens_wire(p.d_plan.lens_tab[None, :], [p.d_plan.singleton],
+                          bits) if p.d_plan.mode != dna.MODE_PLAIN else None)
+    return q, d
 
 
 def decode_lanes(p: _DParsed, cfg: CodecConfig, device, s0: int, s1: int,
-                 q_luts: np.ndarray, out_meta=None) -> torch.Tensor:
+                 wires: tuple, out_meta=None) -> torch.Tensor:
     """Lanes (substreams) s0 .. s1 - 1 of a parsed sub-block, records
-    s0*G .. s1*G - 1, decoded on `device`: both word planes (K5) -> quality
-    walk (K2, or K3 for variable lengths) -> keep mask -> DNA walk (K3) ->
-    ambiguity restore -> delta untranslate, as phyngsc_tpu's
-    _decode_walk_fused under PHYNGSC_DENSIFY=dma. q_luts: the host quality
-    LUTs. Every input goes up in one copy: both streams' words from the
-    first word of lane s0 and their lane tables (bitpack.lane_table), the
-    walk tables (bitpack.walk_tables) as runs, the live records' lengths
-    when they vary, dna.DECODE_TABLES and, with out_meta, its index table.
-    Returns the (2, (s1 - s0)*G, L) uint8 seq/qual planes there, or with
-    out_meta (an _OutMeta) the live rows packed by _pack_out, the
-    ambiguity left to the host in qual8 mode."""
+    s0*G .. s1*G - 1, decoded on `device`: the walk tables built there from
+    the code lengths (K6) -> both word planes (K5) -> quality walk (K2, or
+    K3 for variable lengths) -> keep mask -> DNA walk (K3) -> ambiguity
+    restore -> delta untranslate, as phyngsc_tpu's _decode_walk_fused under
+    PHYNGSC_DENSIFY=dma. wires: decode_wires(p, cfg). Every input goes up in
+    one copy: both streams' words from the first word of lane s0 and their
+    lane tables (bitpack.lane_table), each table's lens4 words and layout
+    rows, the live records' lengths when they vary, dna.DECODE_TABLES and,
+    with out_meta, its index table. Returns
+    the (2, (s1 - s0)*G, L) uint8 seq/qual planes there, or with out_meta
+    (an _OutMeta) the live rows packed by _pack_out, the ambiguity left to
+    the host in qual8 mode."""
     G, bits = p.G, cfg.max_code_len
     q_sub, d_sub = p.q_sub[s0:s1], p.d_sub[s0:s1]
     q_wmax, sp = bitpack.plane_geometry(q_sub, G, p.L, bits)
     d_wmax, _ = bitpack.plane_geometry(d_sub, G, p.L, bits)
     rows = (s1 - s0) * G
     live = min(max(p.R - s0 * G, 0), rows)
-    cuda = torch.device(device).type == "cuda"
-    q_tabs = bitpack.walk_tables(
-        q_luts, bits, cuda, kernels.masked_ids(p.L) if p.variable
-        else max(p.Lt, 1))
-    huffman = p.d_plan.mode != dna.MODE_PLAIN
-    d_tabs = (bitpack.walk_tables(p.d_plan.luts(bits), bits, cuda)
-              if huffman else (None, None))
+    q_wire, d_wire = wires
 
     def words(all_words, sub_all, sub):
         w0 = int(np.sum(sub_all[:s0], dtype=np.int64))
@@ -805,12 +797,12 @@ def decode_lanes(p: _DParsed, cfg: CodecConfig, device, s0: int, s1: int,
         return np.asarray(all_words[w0:w1], np.uint32).view(np.int32)
 
     # the sub-block's one H2D copy; absent pieces are empty
-    (q_words, q_lanes, d_words, d_lanes, tables, q_full, q_packed, d_full,
-     d_packed, lens16, index_tab) = _upload_together([
+    (q_words, q_lanes, d_words, d_lanes, dna_tabs, q_lens, q_rows, d_lens,
+     d_rows, lens16, index_tab) = _upload_together([
          words(p.q_words, p.q_sub, q_sub), bitpack.lane_table(q_sub),
          words(p.d_words, p.d_sub, d_sub), bitpack.lane_table(d_sub),
-         dna.DECODE_TABLES, _runs(q_tabs[0]), _runs(q_tabs[1]),
-         _runs(d_tabs[0]), _runs(d_tabs[1]),
+         dna.DECODE_TABLES, *q_wire.pieces(),
+         *(d_wire.pieces() if d_wire else (_NONE, _NONE)),
          # < 2^16 (the meta section's 16-bit Lt bounds them)
          p.lens_np[s0 * G:s0 * G + live].astype(np.uint16).view(np.int16)
          if p.variable else _NONE,
@@ -820,10 +812,10 @@ def decode_lanes(p: _DParsed, cfg: CodecConfig, device, s0: int, s1: int,
         lens[:live] = lens16.int() & 0xFFFF
     else:
         lens = _record_lens(p.lens_np, rows, device, s0 * G)
-    tables = dna.device_tables(tables)
+    dna_tabs = dna.device_tables(dna_tabs)
 
+    q_walk = tables.walk_luts(q_wire, q_lens, q_rows)
     q_plane = bitpack.dense_words(q_words, q_lanes, q_wmax, sp)
-    q_walk = _walk_luts_up(q_tabs, q_full, q_packed, bits)
     if p.variable:
         qual_t = quality.decode_walk_masked(
             q_plane, lens, q_walk, p.L, G, bits,
@@ -834,20 +826,19 @@ def decode_lanes(p: _DParsed, cfg: CodecConfig, device, s0: int, s1: int,
             legacy=cfg.legacy_tail_trees)
     keep = (qual_t < 128) & quality.valid_mask(lens, p.L)
     d_plane = bitpack.dense_words(d_words, d_lanes, d_wmax, sp)
-    if huffman:
+    if d_wire:
         dna_syms = dna.decode_huffman_walk(
-            d_plane, keep, _walk_luts_up(d_tabs, d_full, d_packed, bits), G,
-            bits)
+            d_plane, keep, tables.walk_luts(d_wire, d_lens, d_rows), G, bits)
     else:
-        dna_syms = dna.decode_plain_walk(d_plane, keep, G, tables["acgt"])
+        dna_syms = dna.decode_plain_walk(d_plane, keep, G, dna_tabs["acgt"])
     if out_meta is not None and out_meta.qual8:
         return _pack_out(dna_syms[:live], qual_t[:live], index_tab, out_meta)
     seq, qual = dna.restore_ambiguity(dna_syms, qual_t, lens,
-                                      tables["amb_char"])
+                                      dna_tabs["amb_char"])
     if out_meta is not None:
         return _pack_out(seq[:live], qual[:live], index_tab, out_meta)
     if p.is_delta:
-        seq = dna.delta_untranslate(seq, lens, tables["nuc_index"])
+        seq = dna.delta_untranslate(seq, lens, dna_tabs["nuc_index"])
     return torch.stack([seq, qual])
 
 
@@ -864,12 +855,11 @@ def _decode_device(p: _DParsed, cfg: CodecConfig, device,
     # both tables are checked before anything is uploaded
     for sub in (p.q_sub, p.d_sub):
         bitpack.plane_geometry(sub, p.G, p.L, cfg.max_code_len)
-    q_luts = (p.q_tables.luts(cfg.max_code_len) if p.q_tables.n_trees
-              else np.zeros((1, 1 << cfg.max_code_len), np.int32))
+    wires = decode_wires(p, cfg)
     if codec is not None:
-        return codec.decode_walk(p, cfg, q_luts), None
+        return codec.decode_walk(p, cfg, wires), None
     meta = _out_meta(p)
-    return [decode_lanes(p, cfg, device, 0, p.q_sub.shape[0], q_luts,
+    return [decode_lanes(p, cfg, device, 0, p.q_sub.shape[0], wires,
                          meta)], meta
 
 

@@ -24,8 +24,12 @@ releases the GIL while it waits, round trips that make no synchronizing
 call (torch.cuda.set_sync_debug_mode("error")), round trips whose task
 streams start behind a sleep (any op off its task's stream then races,
 and the container would differ from the JAX package's; also at two shards
-on two cards), eight threads uploading and fetching at once, and a
-compress that finds the device memory of its task slots' streams cached.
+on two cards), eight threads uploading and fetching at once, a
+compress that finds the device memory of its task slots' streams cached,
+and K6 (the decode's walk tables from code lengths) against its plain
+version on the CPU tests' tree sets, at small budgets, on the goldens'
+tables and from a fresh thread, with round trips that build no LUT on
+the host under the sync-debug mode.
 Skipped without a CUDA device; on the card (which has no jax) run
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -1095,3 +1099,146 @@ def test_task_slots_reuse_device_memory(cuda, monkeypatch):
     print(f"cudaMalloc calls of one compress: kept slots {kept}, fresh "
           f"streams {fresh}")
     assert kept == 0 < fresh
+
+
+def _k6_case(cuda, lens, sing, bits, budget):
+    """K6 on the card against its plain version on the CPU for one tree
+    set and two-level budget: the full LUTs and the two-level table."""
+    from phyngsc_tpu_torch.ops import tables
+
+    T = lens.shape[0]
+    words = torch.from_numpy(bitpack_host.pack_lens4_np(lens, sing).view(
+        np.int32))
+    lay = tables.two_level_layout(lens, sing, bits, budget)
+    rows = torch.from_numpy(lay.trees)
+    full, packed = kernels.decode_tables(
+        words.to(cuda), T, bits, rows.to(cuda) if lay.k else None, lay.k,
+        lay.own, lay.n_blocks, lay.n)
+    want = tables.luts_from_lens_plain(words, words[T * 32:], T, 1 << bits)
+    assert torch.equal(full.cpu(), want)
+    assert torch.equal(packed.cpu(),
+                       tables.two_level_plain(want, rows, lay, bits))
+    return lay
+
+
+@pytest.mark.parametrize("kind", ["zipf", "incomplete", "all 256",
+                                  "long codes"])
+@pytest.mark.parametrize("bits", [8, 12])
+@pytest.mark.parametrize("n_ids,T", [(1, 1), (36, 36),
+                                     (kernels.masked_ids(100), 100),
+                                     (kernels.masked_ids(1000), 128)])
+def test_tables_kernel_matches_plain(cuda, n_ids, T, bits, kind):
+    """K6 on the CPU tests' tree sets (tests/torch_table_cases.py) at the
+    walks' budgets, with their full LUTs and two-level tables exact."""
+    from torch_table_cases import trees
+
+    lens, sing = trees(T, bits, kind, seed=T * 31 + bits)
+    _k6_case(cuda, lens, sing, bits, kernels.table_budget(n_ids))
+
+
+def test_tables_kernel_small_budgets(cuda):
+    """K6 where the budget leaves a block for every escaped prefix, some
+    prefixes to the shared block, or no table (k = 0)."""
+    from torch_table_cases import SMALL_BUDGETS, trees
+
+    seen = set()
+    for kind in ("zipf", "long codes"):
+        lens, sing = trees(36, BITS, kind, seed=43)
+        for budget in SMALL_BUDGETS:
+            lay = _k6_case(cuda, lens, sing, BITS, budget)
+            seen.add("none" if lay.k == 0 else "shared"
+                     if lay.n_blocks > lay.own else "own")
+    assert seen == {"own", "shared", "none"}
+
+
+def test_tables_kernel_on_the_goldens(cuda):
+    """K6 on the quality and DNA tables of every sub-block of the four
+    golden containers, as the decode sizes them (subblock.decode_wires)."""
+    import os
+
+    from phyngsc_tpu_torch.container import block as blockmod
+    from phyngsc_tpu_torch.container import footer as footermod
+    from phyngsc_tpu_torch.pipeline import subblock
+
+    golden = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "golden")
+    n = 0
+    for name in ("tiny_v1", "tiny_v2", "titles_v3", "longread_v4"):
+        with open(os.path.join(golden, f"{name}.ngsct"), "rb") as f:
+            blob = f.read()
+        foot = footermod.read_footer(blob)
+        cfg = CodecConfig(records_per_substream=foot.records_per_substream)
+        offs = np.concatenate([[0], np.cumsum(
+            foot.block_sizes_in_file_order())])
+        blocks = ((w, blob[offs[i]:offs[i + 1]])
+                  for i, w in enumerate(foot.cbo))
+        for _, payload in blockmod.iter_subblocks(blocks):
+            p = subblock._decode_parse(payload, cfg)
+            for wire in subblock.decode_wires(p, cfg):
+                if wire is None:
+                    continue
+                lens = np.zeros((wire.n_trees, 256), np.uint8)
+                sing = wire.words.view(np.int32)[wire.n_trees * 32:]
+                w = wire.words.view(np.uint32)[:wire.n_trees * 32]
+                for j in range(8):  # the nibbles back to lengths
+                    lens[:, j::8] = (w.reshape(wire.n_trees, 32)
+                                     >> (28 - 4 * j)) & 0xF
+                budget = kernels.table_budget(
+                    kernels.masked_ids(p.L) if p.variable else max(p.Lt, 1))
+                lay = _k6_case(cuda, lens, sing, wire.lut_bits, budget)
+                assert (lay.k, lay.n) == (wire.layout.k, wire.layout.n)
+                n += 1
+    assert n >= 8
+
+
+@pytest.mark.parametrize("corpus", ["ERR005195", "2 shards"])
+def test_round_trip_builds_no_host_lut_under_sync_debug(cuda, monkeypatch,
+                                                        corpus):
+    """With QualityTables.luts, DnaPlan.luts and bitpack.walk_tables
+    raising, the round trip runs under set_sync_debug_mode("error") (no
+    device -> host copy to pick the tables' k), gives the CPU's container
+    and the input back, and launches K6 once per sub-block and shard."""
+    data, cfg = _err_and_variable()[corpus]
+    device = cuda if cfg is None else [cuda, cuda]
+    want = compress_bytes(data, cfg, 1, device="cpu")
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a decode path built a LUT on the host")
+
+    monkeypatch.setattr(quality.QualityTables, "luts", refuse)
+    monkeypatch.setattr(dna.DnaPlan, "luts", refuse)
+    monkeypatch.setattr(bitpack, "walk_tables", refuse)
+    assert decompress_bytes(want, cfg, device=device) == data  # warm
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        blob = compress_bytes(data, cfg, 1, device=device)
+        back = decompress_bytes(blob, cfg, device=device)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert blob == want and back == data
+    launches = dict(kernels.LAUNCHES)
+    assert launches["k6_tables"] == launches["k2_walk_uniform"] > 0
+    assert not any(kernels.PLAIN_ON_CUDA.values())
+
+
+def test_tables_kernel_from_a_fresh_thread(cuda):
+    """K6 launched from a thread that never set its current device, on the
+    last card: equal to its plain version."""
+    import threading
+
+    from torch_table_cases import trees
+
+    dev = torch.device("cuda", torch.cuda.device_count() - 1)
+    lens, sing = trees(36, BITS, "zipf", seed=9)
+    out = {}
+
+    def run():
+        out["lay"] = _k6_case(dev, lens, sing, BITS, kernels.table_budget(36))
+        torch.cuda.synchronize(dev)
+
+    t = threading.Thread(target=run)
+    t.start()
+    t.join(timeout=120)
+    assert not t.is_alive() and out["lay"].k > 0

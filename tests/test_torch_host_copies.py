@@ -6,7 +6,8 @@ utils/native is adapted, not copied (it loads the port's own runtime from
 build/host/), so only where each loader looks is held here;
 tests/test_torch_native.py holds the two runtimes' outputs. The host
 functions and constants copied into port modules that hold device code too
-(ops/transfer, pipeline/subblock) are their sources the same way."""
+(ops/transfer, pipeline/subblock, ops/bitpack_host's pack_lens4_np) are
+their sources the same way."""
 
 import dataclasses
 import importlib
@@ -24,9 +25,14 @@ COPIES = ["config", "utils.bitio", "utils.fastq",
           "container.ngsc_export", "parallel.partition"]
 
 
+#: source modules whose copied functions live in another port module
+PORT_MODULE = {"ops.bitpack": "ops.bitpack_host"}
+
+
 def _pair(name):
     return (importlib.import_module(f"phyngsc_tpu.{name}"),
-            importlib.import_module(f"phyngsc_tpu_torch.{name}"))
+            importlib.import_module(
+                f"phyngsc_tpu_torch.{PORT_MODULE.get(name, name)}"))
 
 
 @pytest.mark.parametrize("name", COPIES)
@@ -217,7 +223,25 @@ def _ngsc(j, t):
     assert ti.decompress_ngsc(blob) == ei.decompress_ngsc(blob) == data
 
 
+def _lens4(j, t):
+    """The same words for seeded lengths and singletons, and ValueError on
+    a code length of 16 (the nibble + 1 a corrupt container can hold)."""
+    rng = np.random.default_rng(23)
+    for T in (1, 36, 128):
+        lens = rng.integers(0, 16, size=(T, 256)).astype(np.uint8)
+        sing = rng.integers(-1, 256, size=T).astype(np.int32)
+        want = j.pack_lens4_np(lens, sing)
+        got = t.pack_lens4_np(lens, sing)
+        assert got.dtype == want.dtype == np.uint32
+        np.testing.assert_array_equal(got, want)
+    lens[0, 3] = 16
+    for mod in (j, t):
+        with pytest.raises(ValueError, match="code length"):
+            mod.pack_lens4_np(lens, sing)
+
+
 CASES = {"config": ("config", _config), "bitio": ("utils.bitio", _bitio),
+         "pack_lens4_np": ("ops.bitpack", _lens4),
          "huffman": ("ops.huffman", _huffman),
          "shapes": ("utils.shapes", _shapes),
          "fastq index_records": ("utils.fastq", _fastq),
@@ -236,6 +260,7 @@ def test_copy_behaves_like_its_source(case):
 
 #: (source module, port module, copied functions, copied constants)
 FUNCTION_COPIES = {
+    "ops.bitpack": (["pack_lens4_np"], []),
     "ops.transfer": (
         ["_exc_bucket", "_width", "n_words", "_pack_fixed_np", "pack_seq_np",
          "seq_alpha_small", "pack_qual_np"],
@@ -260,14 +285,14 @@ def _body(fn) -> str:
 
 @pytest.mark.parametrize("module", list(FUNCTION_COPIES))
 def test_function_copies_are_their_sources(module):
-    """ops/transfer's host half is a verbatim copy, docstrings included;
-    the subblock helpers equal theirs apart from a docstring that names the
-    source."""
+    """ops/transfer's host half and ops/bitpack_host's pack_lens4_np are
+    verbatim copies, docstrings included; the subblock helpers equal
+    theirs apart from a docstring that names the source."""
     j, t = _pair(module)
     names, constants = FUNCTION_COPIES[module]
     for name in names:
         a, b = getattr(j, name), getattr(t, name)
-        if module == "ops.transfer":
+        if module in ("ops.transfer", "ops.bitpack"):
             assert re.sub(r"\bphyngsc_tpu_torch\b", "phyngsc_tpu",
                           inspect.getsource(b)) == inspect.getsource(a), name
         else:

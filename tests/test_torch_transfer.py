@@ -1,8 +1,8 @@
 """ops/transfer, the host<->device wire, against phyngsc_tpu's: the host
 packers give the same mode and words (with the native runtime and with it
 absent), the device unpackers give the JAX package's planes from the same
-words (exception padding included), pack_lanes gives the words of the
-packed decode fetch, and the walk tables' runs expand to the tables."""
+words (exception padding included), and pack_lanes gives the words of
+the packed decode fetch."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -12,7 +12,7 @@ import torch
 from phyngsc_tpu.ops import transfer as jtransfer
 from phyngsc_tpu.pipeline import subblock as jsubblock
 from phyngsc_tpu.utils import native as jnative
-from phyngsc_tpu_torch.ops import bitpack, transfer
+from phyngsc_tpu_torch.ops import transfer
 from phyngsc_tpu_torch.pipeline import subblock
 from phyngsc_tpu_torch.utils import native
 from torch_time_limit import time_limit
@@ -176,28 +176,3 @@ def test_pack_lanes_is_the_jax_lane_pack(w):
             subblock._lane_unpack_np(got.numpy().view(np.uint32), w, n),
             vals)
 
-
-def test_walk_table_runs_expand_to_the_tables():
-    """Both forms of bitpack.walk_tables (the full LUTs and, for a card,
-    the two-level table) survive table_runs_np -> expand_runs exactly, and
-    their runs take under a third of the tables' bytes."""
-    from phyngsc_tpu_torch.ops import huffman
-
-    rng = np.random.default_rng(74)
-    freqs = rng.zipf(1.4, size=(40, 256)) * (rng.random((40, 256)) < 0.3)
-    freqs[3] = 0
-    freqs[3, 70] = 5  # a singleton tree
-    lens = huffman.build_code_lengths_batch(freqs, 12)
-    sing = huffman.singleton_of_batch(freqs)
-    sym, ln = huffman.decode_lut_batch(lens, 12, sing)
-    luts = (ln.astype(np.int32) << 9) | sym.astype(np.int32)
-    full, packed, k, _ = bitpack.walk_tables(luts, 12, True, 36)
-    assert 0 < k <= 12 and packed.dtype == np.int16
-    for table, dtype in ((full, torch.int32), (packed, torch.int16)):
-        runs = transfer.table_runs_np(table)
-        assert runs.dtype == np.int32 and runs.nbytes * 3 < table.nbytes
-        got = transfer.expand_runs(torch.from_numpy(runs), table.size, dtype)
-        assert got.dtype == dtype
-        np.testing.assert_array_equal(got.numpy(), table.reshape(-1))
-    empty = transfer.table_runs_np(np.zeros(0, np.int16))
-    assert transfer.expand_runs(torch.from_numpy(empty), 0).numel() == 0

@@ -12,9 +12,11 @@ import numpy as np
 import pytest
 
 from phyngsc_tpu.config import CodecConfig
+from phyngsc_tpu.ops import bitpack as jbitpack
 from phyngsc_tpu.pipeline import subblock as jsubblock
 from phyngsc_tpu.pipeline.compress import compress_bytes as jax_compress
 from phyngsc_tpu.utils.fastq import synthesize_fastq
+from phyngsc_tpu_torch.models import dna
 from phyngsc_tpu_torch.ops import transfer
 from phyngsc_tpu_torch.pipeline import subblock
 from phyngsc_tpu_torch.pipeline.compress import compress_bytes
@@ -204,8 +206,11 @@ def test_compress_wire_bytes(monkeypatch):
 @pytest.mark.parametrize("corpus", ["uniform", "variable", "sharded"])
 def test_decode_wire_bytes(monkeypatch, corpus):
     """One host-to-device copy a sub-block (a shard, sharded) whose bytes
-    are the h2d count; d2h: the packed live rows (_out_fetch_words over
-    R * L cells), or the raw planes of each shard."""
+    are the h2d count, each piece at a 16-byte offset; the walk tables
+    travel as the JAX package's pack_lens4_np words of the quality trees
+    (and of the DNA tree in Huffman mode), each beside its layout rows;
+    d2h: the packed live rows (_out_fetch_words over R * L cells), or the
+    raw planes of each shard."""
     data = synthesize_fastq(
         2000, read_len=100 if corpus == "variable" else 36, seed=96,
         ambiguity_rate=0.01, variable_length=corpus == "variable")
@@ -214,11 +219,12 @@ def test_decode_wire_bytes(monkeypatch, corpus):
                       data_shards=shards)
     blob = compress_bytes(data, cfg, 1, device="cpu")
     parsed = _parsed(blob)
-    copies = []
+    copies, pieces = [], []
     to_device = subblock._to_device
 
     def spy_to_device(a, device):
         copies.append(a.nbytes)
+        pieces.append([np.array(v) for v in a.views])
         return to_device(a, device)
 
     seen = _spy_fetch(monkeypatch)
@@ -228,6 +234,22 @@ def test_decode_wire_bytes(monkeypatch, corpus):
     sink = dict(subblock.TIMING)
     assert len(copies) == shards * len(parsed) and len(seen) == len(parsed)
     assert sink["h2d_bytes"] == sum(copies)
+    for i, (up, nbytes) in enumerate(zip(pieces, copies)):
+        p = parsed[i // shards]
+        q_lens4 = jbitpack.pack_lens4_np(p.q_tables.lens,
+                                         p.q_tables.singletons)
+        assert sum(-(-v.nbytes // 16) * 16 for v in up) == nbytes
+        lens4 = [v.view(np.uint32) for v in up
+                 if v.dtype == np.int32 and v.ndim == 1
+                 and v.size % 33 == 0 and v.size]
+        assert any(np.array_equal(w, q_lens4) for w in lens4)
+        rows = [v for v in up if v.dtype == np.int32 and v.ndim == 2]
+        assert [r.shape[0] for r in rows] == [3] * (
+            1 + (p.d_plan.mode != dna.MODE_PLAIN))
+        if p.d_plan.mode != dna.MODE_PLAIN:
+            assert any(np.array_equal(w, jbitpack.pack_lens4_np(
+                p.d_plan.lens_tab[None, :],
+                np.array([p.d_plan.singleton], np.int32))) for w in lens4)
     if corpus == "sharded":
         assert all(m is None for m in seen)
         want = sum(2 * p.Rp * p.L for p in parsed)
@@ -241,8 +263,8 @@ def test_decode_wire_bytes(monkeypatch, corpus):
 def test_decompress_h2d_within_5pct_of_payload(monkeypatch):
     """tests/test_roundtrip.py's contract for the JAX package's fused
     decode upload, on its corpus: the port's one copy a sub-block (the
-    words, lane tables, walk tables as runs, decode tables) stays within
-    5% of the container."""
+    words, lane tables, the walk tables' code lengths, decode tables)
+    stays within 5% of the container."""
     monkeypatch.setenv("PHYNGSC_TIMING", "1")
     data = synthesize_fastq(60000, read_len=36, seed=13,
                             ambiguity_rate=0.005)
