@@ -22,9 +22,9 @@ Phases (any failure exits non-zero):
      two-level shared-memory tables the decode builds); K6 (the decode's
      walk tables from code lengths) on the quality tables of the 36 bp,
      1000 bp, variable 100 bp and 65,532 bp sub-blocks (the last with the
-     shared block of escapes), the SRR corpus's Huffman DNA table and the
-     36 bp trees with every third a singleton: its full LUTs and two-level
-     table;
+     shared block of escapes), the SRR corpus's Huffman DNA table, its
+     quality and DNA tables in one launch, and the 36 bp trees with every
+     third a singleton: its full LUTs and two-level tables;
      K5 also on lane tables of 16,384 and 131,072 lanes (G = 8 and
      G = 1 over short reads); results must be exactly equal; times are
      CUDA-event medians of one call, each call timed alone after a
@@ -34,7 +34,10 @@ Phases (any failure exits non-zero):
      the same way, and bound_ms, the least time the card could take (bytes
      read once and written once at 3.35 TB/s, or the operations at
      67 T/s, whichever is larger), with the walks' chain floor (their
-     longest lane's steps at one shared-memory load each);
+     longest lane's steps at one shared-memory load each); then the launch
+     floor: an empty kernel at 1 block and at a block an SM, timed the same
+     way (its device time in phase 6), the least a launch of K5 or K6
+     takes;
   2b. the host runtime (phyngsc_tpu_torch/native/host_runtime.cpp on the
      card's host): one default ERR005195 sub-block compressed and
      decompressed on the card, recording each host stage the main path
@@ -50,8 +53,9 @@ Phases (any failure exits non-zero):
      lanes hold more than 2^16 words and 65,532 bp reads, each
      byte-identical, with
      every kernel variant launched, K5 twice per decoded sub-block, K6
-     once per walk that reads tables (the decode builds them on the card
-     from the code lengths), and no plain version run on a CUDA tensor; each corpus's wire modes are
+     once per decoded sub-block (the decode builds both streams' tables on
+     the card from the code lengths in one launch), and no plain version
+     run on a CUDA tensor; each corpus's wire modes are
      printed (the sub-blocks' upload packing of DNA and quality, and their
      decode fetch: qual8, restored symbols at w bits, or raw planes);
   4. the file entry points: compress_file -> decompress_file of the
@@ -61,7 +65,8 @@ Phases (any failure exits non-zero):
   4b. the sharded and multi-process paths: the ERR005195 corpus at
      data_shards=2 on [cuda:0, cuda:0], byte-identical and with phase 3's
      1-shard container, every kernel launched once per shard per sub-block
-     (K1 and K5 twice; K6 builds each shard's tables on its device), and
+     (K1 and K5 twice; K6 builds each shard's tables on its device, one
+     launch a shard a sub-block), and
      variable-length 100 bp reads at data_shards=3
      (an odd lane split); then `python3 -m
      phyngsc_tpu_torch.parallel.distributed` as two processes on the card
@@ -77,6 +82,11 @@ Phases (any failure exits non-zero):
   5. the committed golden containers tiny_v1 / tiny_v2 / titles_v3 /
      longread_v4 decode to their inputs, and the titles_v3 input re-encodes
      to phyngsc_tpu's bytes (by SHA-256);
+  5a. the JAX package's fuzz contract on the card: the first 60 of
+     tests/test_fuzz.py's bit flips of its 2-writer container, each
+     decoded on the card with the CPU's outcome (the input back, or the
+     same ValueError / EOFError; any other exception fails), then a clean
+     ERR round trip in the same process;
   5b. the asynchronous execution (device.py: task streams, pinned
      staging, fetches on events): an upload of a stage-A-sized staging
      buffer returns in under 5 ms while a sleep of tens of ms runs ahead
@@ -91,11 +101,13 @@ Phases (any failure exits non-zero):
      thread's seconds in CPU ops and in each synchronizing CUDA call, by
      enclosing op (utils/logging.py device_activity; phase 4b prints the
      stage split);
-  6. each phase-2 kernel case's own device time from a torch.profiler trace
-     (last, so that the profiler cannot touch the timed round trips).
+  6. each phase-2 kernel case's own device time from a torch.profiler trace,
+     and the empty kernel's (last, so that the profiler cannot touch the
+     timed round trips).
 The last line is {"ok": true, "device": {...}}; the line before it lists the
 kernels with their launch counts (`launches` phase 3's, `sharded_launches`
-phase 4b's), errors, times and bounds. The script imports neither jax nor
+phase 4b's), errors, times and bounds (K5 and K6 also the launch floor's
+device ms by block count). The script imports neither jax nor
 phyngsc_tpu.
 """
 
@@ -685,46 +697,74 @@ def phase_kernels(dev) -> dict:
        *reads.lookups[0])
 
     def k6(name, build):
-        """K6 on a stream's code lengths as the decode uploads them (build()
-        gives subblock.decode_wires' LensWire: the lens4 words and the
-        host's layout rows), against its plain version on the card (the
-        full LUTs and the two-level table, exact); bound: the words and
-        rows read, the tables written; wire_ms: the host time of build()."""
-        wire = build()
-        words, rows = subblock._upload_together(wire.pieces(), dev)
-        lay, T = wire.layout, wire.n_trees
+        """K6 on a sub-block's code lengths as the decode uploads them
+        (build() gives one or two of subblock.decode_wires' LensWires: the
+        lens4 words and the host's layout rows), both streams in one
+        launch (tables.walk_luts_both), against each stream's plain version
+        on the card (the full LUTs and the two-level table, exact); bound:
+        the words and rows read, the tables written; wire_ms: the host
+        time of build()."""
+        wires = build()
+        pieces = [(w, *subblock._upload_together(w.pieces(), dev))
+                  for w in wires]
 
-        def tabs(build):
-            return lambda: (lambda wl: (wl.full, wl.packed))(
-                build(wire, words, rows))
+        def launch():
+            return tables.walk_luts_both(*pieces)[:len(pieces)]
 
+        def plain():
+            return [tables.walk_luts_plain(*x) for x in pieces]
+
+        def join(luts):
+            return torch.cat([t for wl in luts for t in (
+                wl.full.reshape(-1).long(), wl.packed.long())])
+
+        lays = [w.layout for w in wires]
+        nbytes = sum(4 * (words.numel() + rows.numel()
+                          + w.n_trees * (1 << bits)) + 2 * w.layout.n
+                     for w, words, rows in pieces)
         cases["k6_tables"].append(compare(
-            "k6_tables", name, tabs(tables.walk_luts),
-            tabs(tables.walk_luts_plain), 200, 5,
-            bound(4 * (words.numel() + rows.numel() + T * (1 << bits))
-                  + 2 * lay.n),
-            extra={"trees": T, "k": lay.k, "entries": lay.n,
-                   "blocks": lay.n_blocks, "own_blocks": lay.own,
+            "k6_tables", name, launch, plain, 200, 5, bound(nbytes),
+            extra={"streams": len(wires),
+                   "trees": [w.n_trees for w in wires],
+                   "k": [x.k for x in lays], "entries": [x.n for x in lays],
+                   "blocks": [x.n_blocks for x in lays],
+                   "own_blocks": [x.own for x in lays],
                    "wire_ms": host_ms(build, 200)},
-            join=lambda o: torch.cat([o[0].reshape(-1).long(),
-                                      o[1].long()])))
-        return lay
+            join=join))
+        return lays[0]
 
-    k6("k6 ERR quality", lambda: subblock.decode_wires(err.p, err.cfg)[0])
+    k6("k6 ERR quality", lambda: subblock.decode_wires(err.p, err.cfg)[:1])
     k6("k6 1000 bp quality",
-       lambda: subblock.decode_wires(long_.p, long_.cfg)[0])
+       lambda: subblock.decode_wires(long_.p, long_.cfg)[:1])
     k6("k6 variable 100 bp quality",
-       lambda: subblock.decode_wires(var.p, var.cfg)[0])
-    k6("k6 DNA huffman", lambda: subblock.decode_wires(srr.p, srr.cfg)[1])
+       lambda: subblock.decode_wires(var.p, var.cfg)[:1])
+    k6("k6 DNA huffman", lambda: subblock.decode_wires(srr.p, srr.cfg)[1:])
+    k6("k6 SRR quality + DNA huffman, one launch",
+       lambda: subblock.decode_wires(srr.p, srr.cfg))
     lens = err.p.q_tables.lens.copy()
     sing = err.p.q_tables.singletons.copy()
     lens[::3], sing[::3] = 0, 40 + np.arange(lens[::3].shape[0])
     k6("k6 ERR quality, every third tree a singleton",
-       lambda: tables.lens_wire(lens, sing, bits, max(err.p.Lt, 1)))
+       lambda: [tables.lens_wire(lens, sing, bits, max(err.p.Lt, 1))])
     lay = k6("k6 65,532 bp quality (shared block)",
-             lambda: subblock.decode_wires(reads.p, reads.cfg)[0])
+             lambda: subblock.decode_wires(reads.p, reads.cfg)[:1])
     require(lay.k > 0 and lay.n_blocks > lay.own,
             "the 65,532 bp tables have no shared block of escapes")
+
+    def floor(blocks):
+        """An empty kernel's launch: the floor under K5's and K6's times
+        (its device time comes in phase 6, with the kernels')."""
+        def fn():
+            kernels.empty_launch(dev, blocks)
+
+        case = {"case": f"empty kernel, {blocks} blocks", "blocks": blocks,
+                "ms": cuda_ms(fn, 200)}
+        print(f"launch floor: {json.dumps(case)}", flush=True)
+        case["_probe"] = (fn, 200, "empty_kernel")
+        return case
+
+    cases["launch_floor"] = [floor(1), floor(
+        torch.cuda.get_device_properties(dev).multi_processor_count)]
     walks = cases["k2_walk_uniform"] + cases["k3_walk_masked"]
     require(any(c["k"] is not None and c["k"] < bits for c in walks)
             and any(c["k"] == bits for c in walks),
@@ -1000,10 +1040,8 @@ def round_trip(data: bytes, dev, what: str, shards: int = 1) -> dict:
     k5, k6 = run["k5_densify"], run["k6_tables"]
     require(k5 == 2 * shards * n_sub, f"{what}: K5 launched {k5} times for "
             f"{n_sub} decoded sub-blocks of {shards} shards, not twice each")
-    walks = (run["k2_walk_uniform"] + run["k3_walk_masked/quality"]
-             + run["k3_walk_masked/huffman"])
-    require(k6 == walks > 0, f"{what}: K6 launched {k6} times for {walks} "
-            "walks with tables")
+    require(k6 == shards * n_sub, f"{what}: K6 launched {k6} times for "
+            f"{n_sub} decoded sub-blocks of {shards} shards, not once each")
     mb = len(data) / 1e6
     res = {"sha256": hashlib.sha256(comp).hexdigest(), "subblocks": n_sub,
            "compress_mbps": mb / (t1 - t0), "decompress_mbps": mb / (t2 - t1)}
@@ -1232,6 +1270,43 @@ def phase_sharded(dev, err: bytes, err_result: dict) -> dict:
     return launches
 
 
+def phase_fuzz(dev, err: bytes, err_result: dict, n_flips: int = 60) -> None:
+    """The first n_flips of tests/test_fuzz.py's bit flips (its corpus
+    and seeds, tests/torch_fuzz_cases.py) decoded on the card and on the
+    CPU: the same outcome each, the input back or the same designed
+    rejection (ValueError / EOFError), never a fault; then a clean ERR
+    round trip in this process, phase 3's container (a kernel fault would
+    have poisoned the CUDA context)."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_fuzz_cases import CFG, bitflip_corpus, flips, outcome
+
+    rng, data = bitflip_corpus()
+    blob = compress.compress_bytes(data, CFG, 2, device=dev)
+    require(blob == compress.compress_bytes(data, CFG, 2, device="cpu"),
+            "fuzz: the card's container differs from the CPU's")
+    seen = collections.Counter()
+    for pos, bit, mutated in list(flips(rng, blob))[:n_flips]:
+        try:
+            here = outcome(lambda b: decompress_bytes(b, device="cpu"),
+                           mutated, data)
+            there = outcome(lambda b: decompress_bytes(b, device=dev),
+                            mutated, data)
+        except AssertionError as e:
+            require(False, f"fuzz: flip of byte {pos} bit {bit}: {e}")
+        require(here == there, f"fuzz: flip of byte {pos} bit {bit}: "
+                f"{there} on the card, {here} on the CPU")
+        seen[there] += 1
+    torch.cuda.synchronize()
+    require(set(seen) - {"ok"}, "fuzz: no flip was rejected")
+    again = compress.compress_bytes(err, CodecConfig(), 1, device=dev)
+    require(hashlib.sha256(again).hexdigest() == err_result["sha256"]
+            and decompress_bytes(again, None, device=dev) == err,
+            "fuzz: the ERR round trip after the flips is not phase 3's")
+    print(f"fuzz: {n_flips} bit flips decoded on the card as on the CPU "
+          f"{json.dumps(dict(sorted(seen.items())))}, then a clean ERR "
+          "round trip", flush=True)
+
+
 def phase_goldens(dev) -> None:
     inputs = {"tiny_v1.ngsct": synthesize_fastq(300, read_len=36, seed=99),
               "tiny_v2.ngsct": synthesize_fastq(300, read_len=36, seed=99),
@@ -1385,14 +1460,18 @@ def main() -> int:
     phase_files(dev, err)
     sharded = phase_sharded(dev, err, err_result)
     phase_goldens(dev)
+    phase_fuzz(dev, err, err_result)
     phase_async(dev, err, err_result)
     phase_device_times(cases)
     require(all(sys.modules.get(m) is None for m in ("jax", "phyngsc_tpu")),
             "jax or phyngsc_tpu was imported")
 
+    floor_ms = {c["blocks"]: c["device_ms"] for c in cases["launch_floor"]}
     rows = []
     for name, (source, replaces) in KERNELS.items():
         c = cases[name]
+        extra = ({"launch_floor_device_ms": floor_ms}
+                 if name in ("k5_densify", "k6_tables") else {})
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": launches[name],
                      "sharded_launches": sharded[name],
@@ -1401,7 +1480,7 @@ def main() -> int:
                      "bound_ms": c[0]["bound_ms"],
                      "bound_by": c[0]["bound_by"],
                      "library_ms": c[0]["library_ms"],
-                     "device_ms": c[0]["device_ms"], "cases": c})
+                     "device_ms": c[0]["device_ms"], **extra, "cases": c})
     print(card)  # name, power limit: exactly as nvidia-smi prints them
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -97,7 +97,8 @@ _SIGNATURES = {
                             _P, _I, _I, _I, _I, _P, _P],
     "phyngsc_lookup": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
     "phyngsc_densify": [_P, _I64, _P, _I, _I, _I, _P, _P],
-    "phyngsc_tables": [_P, _I, _I, _P, _I, _I, _I, _I, _P, _P, _P],
+    "phyngsc_tables": [_I, *[_P, _P, _I, _I, _I, _I, _I, _P, _P] * 2, _P],
+    "phyngsc_empty": [_I, _P],
 }
 
 
@@ -395,39 +396,69 @@ def densify(words: torch.Tensor, lanes: torch.Tensor, Wmax: int,
     return out
 
 
-def decode_tables(words: torch.Tensor, n_trees: int, lut_bits: int,
-                  layout, k: int, own: int, n_blocks: int, n: int) -> tuple:
-    """K6: a stream's walk tables from its (n_trees * 33,) int32 lens4
-    words (ops/bitpack_host.py pack_lens4_np) -> (full (n_trees,
-    2^lut_bits) int32 LUTs of (len << 9) | sym, packed (n,) int16 holding
-    the uint16 two-level table of ops/bitpack.py two_level_luts). k, own,
-    n_blocks, n and layout, the (3, n_trees) int32 per-tree rows, are the
-    host's ops/tables.py Layout of the same lengths (layout None and n = 0
-    when k = 0). One launch, a block a tree."""
-    _require(words, "lens words", torch.int32)
-    if (words.shape != (33 * n_trees,) or not 1 <= n_trees < 1 << 16
-            or not 1 <= lut_bits <= 16 or not 0 <= k <= lut_bits):
-        raise ValueError(f"decode_tables: {tuple(words.shape)} words for "
-                         f"{n_trees} trees, lut_bits={lut_bits} k={k}")
-    d = lut_bits - k
-    used = (n_trees << k) + (n_blocks << d)
-    if k == 0:
-        ok = n == own == n_blocks == 0 and layout is None
-    else:
-        _require(layout, "layout", torch.int32)
-        ok = (layout.shape == (3, n_trees)
-              and layout.get_device() == words.get_device()
-              and 0 <= own <= n_blocks <= own + 1 and n == -(-used // 8) * 8)
-    if not ok:
-        raise ValueError(f"decode_tables: bad layout k={k} own={own} "
-                         f"blocks={n_blocks} entries={n}")
-    full = torch.empty((n_trees, 1 << lut_bits), dtype=torch.int32,
-                       device=words.device)
-    packed = torch.empty(n, dtype=torch.int16, device=words.device)
-    rc = _launch(_bound().phyngsc_tables, full, words.data_ptr(), n_trees,
-                 lut_bits, None if layout is None else layout.data_ptr(), k,
-                 own, n_blocks, n, full.data_ptr(),
-                 packed.data_ptr() if n else None)
+#: the launch arguments of K6's absent second stream
+_NO_STREAM = (None, None, 0, 0, 0, 0, 0, None, None)
+
+
+def decode_tables(lut_bits: int, streams) -> list:
+    """K6: the walk tables of one or two streams of a sub-block (quality,
+    then Huffman DNA) in one launch. Each stream is (words, n_trees,
+    layout, k, own, n_blocks, n): its (n_trees * 33,) int32 lens4 words
+    (ops/bitpack_host.py pack_lens4_np) and the host's ops/tables.py Layout
+    of the same lengths, layout its (3, n_trees) int32 per-tree rows (None
+    and n = 0 when k = 0) -> a (full, packed) pair a stream: full
+    (n_trees, 2^lut_bits) int32 LUTs of (len << 9) | sym, packed (n,)
+    int16 holding the uint16 two-level table of ops/bitpack.py
+    two_level_luts; all views of one allocation."""
+    if not (0 < len(streams) <= 2 and 0 < lut_bits <= 16):
+        raise ValueError(f"decode_tables: {len(streams)} streams, "
+                         f"lut_bits={lut_bits}")
+    V = 1 << lut_bits
+    dev = streams[0][0].get_device()
+    n_full = n_packed = 0
+    for words, n_trees, layout, k, own, n_blocks, n in streams:
+        _require(words, "lens words", torch.int32)
+        if k:
+            _require(layout, "layout", torch.int32)
+            ok = (0 < k <= lut_bits and layout.shape == (3, n_trees)
+                  and layout.get_device() == dev
+                  and 0 <= own <= n_blocks <= own + 1
+                  and n == ((n_trees << k) + (n_blocks << lut_bits - k) + 7)
+                  // 8 * 8)
+        else:
+            ok = n == own == n_blocks == 0 and layout is None
+        if not (ok and words.shape == (33 * n_trees,)
+                and words.get_device() == dev and 0 < n_trees < 1 << 16
+                and n_trees * V < 1 << 31 and n < 1 << 31):
+            raise ValueError(f"decode_tables: {tuple(words.shape)} words for "
+                             f"{n_trees} trees, lut_bits={lut_bits} k={k} "
+                             f"own={own} blocks={n_blocks} entries={n}")
+        n_full += n_trees * V
+        n_packed += n // 2
+    buf = torch.empty(n_full + n_packed, dtype=torch.int32,
+                      device=streams[0][0].device)
+    base, at, packed_at = buf.data_ptr(), 0, n_full
+    out, args = [], []
+    for words, n_trees, layout, k, own, n_blocks, n in streams:
+        out.append((buf.as_strided((n_trees, V), (V, 1), at), buf.as_strided(
+            (n // 2,), (1,), packed_at).view(torch.int16)))
+        args += [words.data_ptr(),
+                 None if layout is None else layout.data_ptr(), n_trees, k,
+                 own, n_blocks, n, base + 4 * at,
+                 base + 4 * packed_at if n else None]
+        at += n_trees * V
+        packed_at += n // 2
+    if len(streams) == 1:
+        args += _NO_STREAM
+    rc = _launch(_bound().phyngsc_tables, buf, lut_bits, *args)
     _check(rc, "k6_tables")
     _count(LAUNCHES, "k6_tables")
-    return full, packed
+    return out
+
+
+def empty_launch(device, blocks: int) -> None:
+    """An empty kernel of `blocks` blocks of 256 threads on the device's
+    current stream: the device time of a launch alone (chip_smoke's floor
+    under K5 and K6). Not a kernel of the path, and not counted."""
+    t = torch.empty(0, device=device)
+    _check(_launch(_bound().phyngsc_empty, t, blocks), "empty")

@@ -4,7 +4,8 @@ phyngsc_tpu/ops/bitpack.py lut_runs_device / luts_from_lens_device).
 The decode uploads each stream's canonical code lengths as nibbles
 (lens_wire: bitpack_host.pack_lens4_np, T * 33 uint32 words) and builds
 its tables where the walks read them: K6 (csrc/tables.cu) on a CUDA
-device, luts_from_lens_plain on the CPU. The walks take a bitpack.WalkLuts:
+device, one launch for both streams of a sub-block (walk_luts_both),
+luts_from_lens_plain on the CPU. The walks take a bitpack.WalkLuts:
 the full (T, 2^lut_bits) int32 LUTs of (len << 9) | sym entries, and, for
 CUDA tensors, bitpack.two_level_luts' 16-bit two-level table.
 
@@ -148,7 +149,7 @@ def two_level_layout(lens2d, singletons, lut_bits: int,
     # per k = 1 .. lut_bits: each tree's first escaped prefix and count
     ks = np.arange(1, lut_bits + 1)
     d = lut_bits - ks
-    lo = np.minimum(kraft[:, ks], V) >> d
+    lo = np.minimum(kraft[:, np.minimum(ks, N_LENS - 1)], V) >> d
     hi = (end[:, None] + (1 << d) - 1) >> d
     n_esc_t = np.maximum(hi - lo, 0)
     n_esc_k = n_esc_t.sum(axis=0)
@@ -247,21 +248,37 @@ def lens_wire(lens2d, singletons, lut_bits: int, n_ids: int = 1) -> LensWire:
     return LensWire(words, lens.shape[0], lut_bits, layout)
 
 
+def walk_luts_both(q: tuple, d: tuple | None = None) -> tuple:
+    """Both streams' WalkLuts of a sub-block, built on their device from
+    their uploaded pieces: q and d are (LensWire, words, rows), d None
+    where the DNA stream is plain; both at one lut_bits -> (quality
+    WalkLuts, DNA WalkLuts or None). On a CUDA device one K6 launch over
+    both streams' trees builds the full LUTs and the two-level tables; on
+    the CPU each stream's plain full LUTs (the CPU's walks read nothing
+    else)."""
+    streams = [q] if d is None else [q, d]
+    bits = q[0].lut_bits
+    if any(wire.lut_bits != bits for wire, _, _ in streams):
+        raise ValueError("walk_luts_both: the streams' lut_bits differ")
+    if q[1].device.type == "cpu":
+        out = [WalkLuts(luts_from_lens_plain(words, words[wire.n_trees * 32:],
+                                             wire.n_trees, 1 << bits), bits)
+               for wire, words, _ in streams]
+    else:
+        built = kernels.decode_tables(bits, [
+            (words, wire.n_trees, rows if wire.layout.k else None,
+             wire.layout.k, wire.layout.own, wire.layout.n_blocks,
+             wire.layout.n) for wire, words, rows in streams])
+        out = [WalkLuts(full, bits, packed, wire.layout.k,
+                        wire.layout.n_primary)
+               for (wire, _, _), (full, packed) in zip(streams, built)]
+    return out[0], out[1] if d is not None else None
+
+
 def walk_luts(wire: LensWire, words: torch.Tensor,
               rows: torch.Tensor) -> WalkLuts:
-    """A LensWire's uploaded pieces (words, rows) -> the WalkLuts the walks
-    take, built on their device: one K6 launch on a CUDA device (the full
-    LUTs and the two-level table), the plain full LUTs on the CPU (whose
-    walks read nothing else)."""
-    T, bits = wire.n_trees, wire.lut_bits
-    if words.device.type == "cpu":
-        return WalkLuts(luts_from_lens_plain(words, words[T * 32:], T,
-                                             1 << bits), bits)
-    lay = wire.layout
-    full, packed = kernels.decode_tables(
-        words, T, bits, rows if lay.k else None, lay.k, lay.own,
-        lay.n_blocks, lay.n)
-    return WalkLuts(full, bits, packed, lay.k, lay.n_primary)
+    """One stream's WalkLuts: walk_luts_both of that stream alone."""
+    return walk_luts_both((wire, words, rows))[0]
 
 
 def walk_luts_plain(wire: LensWire, words: torch.Tensor,

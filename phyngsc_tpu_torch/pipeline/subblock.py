@@ -771,14 +771,15 @@ def decode_wires(p: _DParsed, cfg: CodecConfig) -> tuple:
 def decode_lanes(p: _DParsed, cfg: CodecConfig, device, s0: int, s1: int,
                  wires: tuple, out_meta=None) -> torch.Tensor:
     """Lanes (substreams) s0 .. s1 - 1 of a parsed sub-block, records
-    s0*G .. s1*G - 1, decoded on `device`: the walk tables built there from
-    the code lengths (K6) -> both word planes (K5) -> quality walk (K2, or
-    K3 for variable lengths) -> keep mask -> DNA walk (K3) -> ambiguity
-    restore -> delta untranslate, as phyngsc_tpu's _decode_walk_fused under
-    PHYNGSC_DENSIFY=dma. wires: decode_wires(p, cfg). Every input goes up in
-    one copy: both streams' words from the first word of lane s0 and their
-    lane tables (bitpack.lane_table), each table's lens4 words and layout
-    rows, the live records' lengths when they vary, dna.DECODE_TABLES and,
+    s0*G .. s1*G - 1, decoded on `device`: both streams' walk tables built
+    there from the code lengths (K6, one launch) -> both word planes (K5)
+    -> quality walk (K2, or K3 for variable lengths) -> keep mask -> DNA
+    walk (K3) -> ambiguity restore -> delta untranslate, as phyngsc_tpu's
+    _decode_walk_fused under PHYNGSC_DENSIFY=dma. wires: decode_wires(p,
+    cfg). Every input goes up in one copy: both streams' words from the
+    first word of lane s0 and their lane tables (bitpack.lane_table), each
+    table's lens4 words and layout rows, the live records' lengths when
+    they vary, dna.DECODE_TABLES and,
     with out_meta, its index table. Returns
     the (2, (s1 - s0)*G, L) uint8 seq/qual planes there, or with out_meta
     (an _OutMeta) the live rows packed by _pack_out, the ambiguity left to
@@ -814,7 +815,8 @@ def decode_lanes(p: _DParsed, cfg: CodecConfig, device, s0: int, s1: int,
         lens = _record_lens(p.lens_np, rows, device, s0 * G)
     dna_tabs = dna.device_tables(dna_tabs)
 
-    q_walk = tables.walk_luts(q_wire, q_lens, q_rows)
+    q_walk, d_walk = tables.walk_luts_both(
+        (q_wire, q_lens, q_rows), (d_wire, d_lens, d_rows) if d_wire else None)
     q_plane = bitpack.dense_words(q_words, q_lanes, q_wmax, sp)
     if p.variable:
         qual_t = quality.decode_walk_masked(
@@ -827,8 +829,7 @@ def decode_lanes(p: _DParsed, cfg: CodecConfig, device, s0: int, s1: int,
     keep = (qual_t < 128) & quality.valid_mask(lens, p.L)
     d_plane = bitpack.dense_words(d_words, d_lanes, d_wmax, sp)
     if d_wire:
-        dna_syms = dna.decode_huffman_walk(
-            d_plane, keep, tables.walk_luts(d_wire, d_lens, d_rows), G, bits)
+        dna_syms = dna.decode_huffman_walk(d_plane, keep, d_walk, G, bits)
     else:
         dna_syms = dna.decode_plain_walk(d_plane, keep, G, dna_tabs["acgt"])
     if out_meta is not None and out_meta.qual8:

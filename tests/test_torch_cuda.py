@@ -28,8 +28,10 @@ on two cards), eight threads uploading and fetching at once, a
 compress that finds the device memory of its task slots' streams cached,
 and K6 (the decode's walk tables from code lengths) against its plain
 version on the CPU tests' tree sets, at small budgets, on the goldens'
-tables and from a fresh thread, with round trips that build no LUT on
-the host under the sync-debug mode.
+tables, over both streams of a sub-block in one launch at lut_bits 8-16
+and from a fresh thread, with round trips that build no LUT on the host
+under the sync-debug mode; the empty kernel of the launch floor; and the
+JAX package's fuzz flips decoded on the card as on the CPU.
 Skipped without a CUDA device; on the card (which has no jax) run
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -1111,9 +1113,11 @@ def _k6_case(cuda, lens, sing, bits, budget):
         np.int32))
     lay = tables.two_level_layout(lens, sing, bits, budget)
     rows = torch.from_numpy(lay.trees)
-    full, packed = kernels.decode_tables(
-        words.to(cuda), T, bits, rows.to(cuda) if lay.k else None, lay.k,
-        lay.own, lay.n_blocks, lay.n)
+    before = kernels.LAUNCHES["k6_tables"]
+    ((full, packed),) = kernels.decode_tables(bits, [(
+        words.to(cuda), T, rows.to(cuda) if lay.k else None, lay.k, lay.own,
+        lay.n_blocks, lay.n)])
+    assert kernels.LAUNCHES["k6_tables"] == before + 1
     want = tables.luts_from_lens_plain(words, words[T * 32:], T, 1 << bits)
     assert torch.equal(full.cpu(), want)
     assert torch.equal(packed.cpu(),
@@ -1189,6 +1193,82 @@ def test_tables_kernel_on_the_goldens(cuda):
                 assert (lay.k, lay.n) == (wire.layout.k, wire.layout.n)
                 n += 1
     assert n >= 8
+
+
+def _two_stream_case(cuda, case, bits):
+    """walk_luts_both on the card, one K6 launch over both streams' trees,
+    against each stream's plain version on the CPU."""
+    from phyngsc_tpu_torch.ops import tables
+    from torch_table_cases import two_streams
+
+    q, d = two_streams(*case, bits)
+    on_card = [None if x is None else (x[0], x[1].to(cuda), x[2].to(cuda))
+               for x in (q, d)]
+    before = kernels.LAUNCHES["k6_tables"]
+    got = tables.walk_luts_both(*on_card)
+    assert kernels.LAUNCHES["k6_tables"] == before + 1
+    assert (got[1] is None) == (d is None)
+    for pieces, wl in zip((q, d), got):
+        if pieces is None:
+            continue
+        want = tables.walk_luts_plain(*pieces)
+        assert torch.equal(wl.full.cpu(), want.full)
+        assert torch.equal(wl.packed.cpu(), want.packed)
+        assert (wl.k, wl.n_primary, wl.lut_bits) == (want.k, want.n_primary,
+                                                     bits)
+    return q[0].layout
+
+
+def _two_stream_params():
+    from torch_table_cases import TWO_STREAM_BITS, TWO_STREAMS
+
+    return [(c, b) for c in TWO_STREAMS for b in TWO_STREAM_BITS]
+
+
+@pytest.mark.parametrize("case,bits", _two_stream_params())
+def test_tables_kernel_two_streams(cuda, case, bits):
+    """K6 over a sub-block's quality and Huffman-DNA trees in one launch
+    (or the quality trees alone, plain DNA) at lut_bits 8-16: ERR's 36
+    trees, 128 trees, the 65,532 bp reads' shared block of escapes, one
+    tree; each stream equal to its plain version."""
+    lay = _two_stream_case(cuda, case, bits)
+    if case[:2] == (128, "long codes") and bits == 12:
+        assert lay.k > 0 and lay.n_blocks > lay.own
+
+
+def test_empty_launch(cuda):
+    """The empty kernel (chip_smoke's launch floor) launches at 1 and 132
+    blocks, and counts as no kernel of the path."""
+    before = dict(kernels.LAUNCHES)
+    for blocks in (1, 132):
+        kernels.empty_launch(cuda, blocks)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES == before
+
+
+def test_fuzz_flips_on_card(cuda):
+    """tests/test_fuzz.py's 120 bit flips (torch_fuzz_cases) decoded on the
+    card: each flip gives the CPU's outcome, the input back or the same
+    designed rejection (ValueError / EOFError), never a fault; then a clean
+    ERR round trip in the same process (a kernel fault would have poisoned
+    its CUDA context)."""
+    from torch_fuzz_cases import CFG, bitflip_corpus, flips, outcome
+
+    rng, data = bitflip_corpus()
+    blob = compress_bytes(data, CFG, 2, device="cpu")
+    seen = []
+    for _, _, mutated in flips(rng, blob):
+        here = outcome(lambda b: decompress_bytes(b, device="cpu"), mutated,
+                       data)
+        there = outcome(lambda b: decompress_bytes(b, device=cuda), mutated,
+                        data)
+        assert there == here
+        seen.append(there)
+    torch.cuda.synchronize()
+    assert set(seen) - {"ok"}
+    err = synthesize_fastq(20000, read_len=36, seed=23, ambiguity_rate=0.002)
+    assert decompress_bytes(compress_bytes(err, None, 1, device=cuda),
+                            device=cuda) == err
 
 
 @pytest.mark.parametrize("corpus", ["ERR005195", "2 shards"])

@@ -7,9 +7,12 @@ last code's entry (no well-formed stream reads there); two_level_plain,
 from the host's
 two_level_layout, equals bitpack.two_level_luts (bytes, k and n_primary)
 at the walks' budgets and at budgets small enough to force the shared
-block and k = 0; a code length of 16 raises ValueError before anything is
-uploaded; and the round trips decode with the host LUT functions patched to
-raise, from containers equal to the JAX package's. Tolerance 0 throughout
+block and k = 0; the two-stream build (walk_luts_both, one K6 launch a
+sub-block on a card) gives each stream what the single-stream build gives
+at lut_bits 8-16, and the decode calls it once per sub-block per shard; a
+code length of 16 raises ValueError before anything is uploaded; and the
+round trips decode with the host LUT functions patched to raise, from
+containers equal to the JAX package's. Tolerance 0 throughout
 (integer tables)."""
 
 import jax.numpy as jnp
@@ -29,7 +32,9 @@ from phyngsc_tpu_torch.pipeline import subblock
 from phyngsc_tpu_torch.pipeline.compress import compress_bytes
 from phyngsc_tpu_torch.pipeline.decompress import decompress_bytes
 from test_torch_pipeline import _huffman_dna_input, _parsed
-from torch_table_cases import KINDS, SMALL_BUDGETS, TWO_LEVEL, trees
+from torch_table_cases import (KINDS, SMALL_BUDGETS, TWO_LEVEL,
+                               TWO_STREAM_BITS, TWO_STREAMS, trees,
+                               two_streams, wire_pieces)
 from torch_time_limit import time_limit
 
 _limit = time_limit(60)
@@ -147,6 +152,49 @@ def test_walk_luts_match_host_walk_luts(bits):
     assert (card.k, card.n_primary) == (k, n_primary)
 
 
+@pytest.mark.parametrize("bits", TWO_STREAM_BITS)
+@pytest.mark.parametrize("T,kind,n_ids,dna_kind", TWO_STREAMS)
+def test_walk_luts_both_match_single_stream(T, kind, n_ids, dna_kind, bits):
+    """walk_luts_both on the CPU gives each stream exactly what the
+    single-stream walk_luts gives, walk_luts_plain's full LUTs and the JAX
+    package's luts_from_lens_device; its layouts are two_level_luts' (the
+    card's test holds K6's one launch to walk_luts_plain on them). Code
+    lengths are capped at 15, the nibble's largest."""
+    q, d = two_streams(T, kind, n_ids, dna_kind, bits)
+    if (T, kind) == (128, "long codes") and bits == 12:
+        lay = q[0].layout
+        assert lay.k > 0 and lay.n_blocks > lay.own  # the shared block
+    got = tables.walk_luts_both(q, d)
+    assert (got[1] is None) == (d is None)
+    for pieces, wl in zip((q, d), got):
+        if pieces is None:
+            continue
+        wire, words, rows = pieces
+        n = wire.n_trees
+        assert wl.lut_bits == bits and wl.packed is None
+        assert torch.equal(wl.full, tables.walk_luts(wire, words, rows).full)
+        plain = tables.walk_luts_plain(wire, words, rows)
+        assert torch.equal(wl.full, plain.full)
+        u32 = wire.words.view(np.uint32)
+        np.testing.assert_array_equal(wl.full.numpy(), np.asarray(
+            jbitpack.luts_from_lens_device(jnp.asarray(u32[:n * 32]),
+                                           jnp.asarray(u32[n * 32:]), n,
+                                           1 << bits)))
+        budget = kernels.table_budget(n_ids if pieces is q else 1)
+        want, k, n_primary = bitpack.two_level_luts(wl.full.numpy(), bits,
+                                                    budget)
+        np.testing.assert_array_equal(plain.packed.numpy(),
+                                      want.view(np.int16))
+        assert (plain.k, plain.n_primary) == (k, n_primary)
+
+
+def test_walk_luts_both_needs_one_lut_bits():
+    lens, sing = trees(2, 8, "zipf", seed=1)
+    with pytest.raises(ValueError, match="lut_bits"):
+        tables.walk_luts_both(wire_pieces(lens, sing, 8, 0),
+                              wire_pieces(lens, sing, 12, 0))
+
+
 def test_empty_stream_takes_one_empty_tree():
     """No quality trees: one all-zero tree, the JAX package's
     pack_lens4_np(zeros((1, 256)), [-1])."""
@@ -216,6 +264,32 @@ CORPORA = {
     "2 shards": (lambda: synthesize_fastq(1500, read_len=36, seed=65),
                  dict(KW, data_shards=2)),
 }
+
+
+@pytest.mark.parametrize("corpus", ["Huffman DNA", "2 shards"])
+def test_round_trip_builds_tables_once_a_subblock(monkeypatch, corpus):
+    """decode_lanes builds both streams' tables in one call of
+    walk_luts_both (one K6 launch on a card) per decoded sub-block per
+    shard, the Huffman-DNA sub-blocks included."""
+    build, kw = CORPORA[corpus]
+    data = build()
+    cfg = CodecConfig(**kw)
+    stats = []
+    blob = compress_bytes(data, cfg, 1, device="cpu", stats_out=stats)
+    n_sub = sum(st.n_subblocks for st in stats)
+    streams = []
+    both = tables.walk_luts_both
+
+    def counted(q, d=None):
+        streams.append(1 if d is None else 2)
+        return both(q, d)
+
+    monkeypatch.setattr(tables, "walk_luts_both", counted)
+    assert decompress_bytes(blob, cfg, device="cpu") == data
+    assert len(streams) == cfg.data_shards * n_sub > cfg.data_shards
+    huffman = [p.d_plan.mode == dna.MODE_HUFFMAN for p in _parsed(blob)]
+    assert streams == [1 + h for h in huffman for _ in range(cfg.data_shards)]
+    assert any(huffman) == (corpus == "Huffman DNA")
 
 
 @pytest.mark.parametrize("corpus", list(CORPORA))

@@ -4,9 +4,10 @@ test_torch_cuda.py holds K6 to its plain version on the card, where jax
 is absent."""
 
 import numpy as np
+import torch
 
 from phyngsc_tpu_torch import kernels
-from phyngsc_tpu_torch.ops import huffman
+from phyngsc_tpu_torch.ops import bitpack_host, huffman, tables
 
 KINDS = ["zipf", "incomplete", "all 256", "long codes"]
 
@@ -51,3 +52,36 @@ TWO_LEVEL = [(1, 1), (36, 36), (kernels.masked_ids(100), 100),
 #: budgets below the walks' that take 36 trees through smaller k, the
 #: shared block of escapes and no table at all (k = 0)
 SMALL_BUDGETS = [40000, 20000, 8000, 3000, 1000, 600, 0]
+
+
+#: (quality trees, their kind, the walk's tree ids; the DNA stream's kind,
+#: or None for a plain-DNA sub-block) of the two-stream table build: ERR's
+#: 36 trees, 1000 bp's 128, the 65,532 bp reads' 128 (at 12 bits, with the
+#: shared block of escapes), one tree
+TWO_STREAMS = [(36, "zipf", 36, "long codes"), (36, "zipf", 36, None),
+               (128, "incomplete", kernels.masked_ids(1000), "zipf"),
+               (128, "long codes", kernels.masked_ids(65532), None),
+               (1, "all 256", 1, "long codes")]
+TWO_STREAM_BITS = [8, 10, 12, 14, 16]
+
+
+def wire_pieces(lens, sing, bits: int, budget: int) -> tuple:
+    """A stream's LensWire laid out at `budget` and its uploaded pieces on
+    the CPU: (wire, words, rows)."""
+    words = bitpack_host.pack_lens4_np(lens, sing).view(np.int32)
+    wire = tables.LensWire(words, lens.shape[0], bits,
+                           tables.two_level_layout(lens, sing, bits, budget))
+    return (wire, *(torch.from_numpy(p) for p in wire.pieces()))
+
+
+def two_streams(T: int, kind: str, n_ids: int, dna_kind, bits: int) -> tuple:
+    """The (q, d) pieces of a TWO_STREAMS case at lut_bits `bits` (d None
+    without a DNA stream); code lengths capped at 15, the nibble's
+    largest."""
+    cap = min(bits, 15)
+    lens, sing = trees(T, cap, kind, seed=T + bits)
+    q = wire_pieces(lens, sing, bits, kernels.table_budget(n_ids))
+    if dna_kind is None:
+        return q, None
+    dl, ds = trees(1, cap, dna_kind, seed=bits)
+    return q, wire_pieces(dl, ds, bits, kernels.table_budget(1))
