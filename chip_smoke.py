@@ -57,7 +57,15 @@ Phases (any failure exits non-zero):
      the card from the code lengths in one launch), and no plain version
      run on a CUDA tensor; each corpus's wire modes are
      printed (the sub-blocks' upload packing of DNA and quality, and their
-     decode fetch: qual8, restored symbols at w bits, or raw planes);
+     decode fetch: qual8, restored symbols at w bits, or raw planes). Each
+     corpus runs twice, the first and the second call in this process,
+     each byte-identical, with each stage's CUDA graph statistics printed
+     (`graphs ...:` lines: eager first sights, captures, replays, keys,
+     capture seconds, instances and their bytes; graphs.py); the second
+     call runs no stage eagerly, and on the ERR corpus every stage
+     replays on each sub-block but at most one a key. Phase 2's kernel
+     cases take their inputs from stages run without graphs
+     (graphs.direct);
   4. the file entry points: compress_file -> decompress_file of the
      ERR005195 corpus on disk, byte-identical, with every kernel of the path
      launched in that run, then `python3 -m phyngsc_tpu_torch verify FILE
@@ -95,7 +103,7 @@ Phases (any failure exits non-zero):
      its ms printed; the ERR round trip under
      torch.cuda.set_sync_debug_mode("error") (no blocking copy, .item() or
      synchronize on any thread), byte-identical and with phase 3's
-     container; then one ERR compress and one ERR decompress under
+     container, every stage replaying its graphs; then one ERR compress and one ERR decompress under
      torch.profiler: the card's busy share over each call's wall (the
      union of its kernel, copy and memset intervals), the calling
      thread's seconds in CPU ops and in each synchronizing CUDA call, by
@@ -132,8 +140,8 @@ sys.modules["phyngsc_tpu"] = None  # ... nor the JAX package
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from phyngsc_tpu_torch import (CodecConfig, host_runtime, kernels,  # noqa: E402
-                               synthesize_fastq)
+from phyngsc_tpu_torch import (CodecConfig, graphs, host_runtime,  # noqa: E402
+                               kernels, synthesize_fastq)
 from phyngsc_tpu_torch.models import dna, quality, title  # noqa: E402
 from phyngsc_tpu_torch.ops import (bitpack, bitpack_host, histogram,  # noqa: E402
                                    lookup, tables, transfer)
@@ -143,6 +151,7 @@ from phyngsc_tpu_torch.pipeline.decompress import (  # noqa: E402
 from phyngsc_tpu_torch.utils import bitio, native  # noqa: E402
 from phyngsc_tpu_torch import device as devmod  # noqa: E402
 from phyngsc_tpu_torch.utils.logging import device_activity  # noqa: E402
+from phyngsc_tpu_torch.utils.shapes import BucketCtx  # noqa: E402
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN_DIR = os.path.join(ROOT, "tests", "golden")
@@ -344,7 +353,10 @@ class FirstSubblock:
         self.G = self.cfg.records_per_substream
         regions = compress.partition_regions(buf, 1, self.cfg)
         _, idx = next(compress.iter_subblock_tasks(buf, regions, self.cfg))
-        self.a = subblock.stage_a(buf, idx, self.cfg, dev)
+        # stages A and B run their steps directly: their tensors are then
+        # this case's own, not a graph's buffers that a replay overwrites
+        with graphs.direct():
+            self.a = subblock.stage_a(buf, idx, self.cfg, dev)
         self.lookups = []
         launch = kernels.lookup
 
@@ -355,7 +367,8 @@ class FirstSubblock:
 
         kernels.lookup = record
         try:
-            b = subblock.stage_b(self.a, self.cfg)
+            with graphs.direct():
+                b = subblock.stage_b(self.a, self.cfg)
         finally:
             kernels.lookup = launch
         self.p = subblock._decode_parse(subblock.stage_c(b, self.cfg),
@@ -734,6 +747,12 @@ def phase_kernels(dev) -> dict:
         return lays[0]
 
     k6("k6 ERR quality", lambda: subblock.decode_wires(err.p, err.cfg)[:1])
+    lay = k6("k6 ERR quality, widened as the decode's buckets widen it",
+             lambda: [subblock._widen(
+                 subblock.decode_wires(err.p, err.cfg)[0], "own_q", err.p.Rp,
+                 max(err.p.Lt, 1), BucketCtx())])
+    require(lay.k > 0 and lay.own == lay.n_blocks,
+            "the widened ERR tables have a shared block of escapes")
     k6("k6 1000 bp quality",
        lambda: subblock.decode_wires(long_.p, long_.cfg)[:1])
     k6("k6 variable 100 bp quality",
@@ -1017,41 +1036,86 @@ class WireModes:
 
 def round_trip(data: bytes, dev, what: str, shards: int = 1) -> dict:
     """compress_bytes -> decompress_bytes on the card, byte-identical, with
-    K5 launched twice (quality and DNA planes) per shard per decoded
-    sub-block; `shards` data shards, all on dev. Returns the container's
-    SHA-256, its sub-block count and both rates."""
+    K5 launched twice (quality and DNA planes) and K6 once per shard per
+    decoded sub-block; `shards` data shards, all on dev. One shard: twice,
+    the first call and the second call in this process, each stage's CUDA
+    graph statistics printed for each call (graphs.stats: eager first
+    sights, captures, replays, keys, capture seconds, instances and their
+    bytes); the second call must run no stage eagerly. Returns the
+    container's SHA-256, its sub-block count, both rates (the first call's)
+    and each call's graph statistics."""
     cfg = CodecConfig(data_shards=shards)
     device = dev if shards == 1 else [dev] * shards
-    stats = []
-    with WireModes() as modes:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        comp = compress.compress_bytes(data, cfg, 1, device=device,
-                                       stats_out=stats)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        before = dict(kernels.LAUNCHES)
-        back = decompress_bytes(comp, cfg, device=device)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-    require(back == data, f"{what}: round trip is not byte-identical")
-    n_sub = sum(s.n_subblocks for s in stats)
-    run = {k: v - before[k] for k, v in kernels.LAUNCHES.items()}
-    k5, k6 = run["k5_densify"], run["k6_tables"]
-    require(k5 == 2 * shards * n_sub, f"{what}: K5 launched {k5} times for "
-            f"{n_sub} decoded sub-blocks of {shards} shards, not twice each")
-    require(k6 == shards * n_sub, f"{what}: K6 launched {k6} times for "
-            f"{n_sub} decoded sub-blocks of {shards} shards, not once each")
-    mb = len(data) / 1e6
-    res = {"sha256": hashlib.sha256(comp).hexdigest(), "subblocks": n_sub,
-           "compress_mbps": mb / (t1 - t0), "decompress_mbps": mb / (t2 - t1)}
-    print(f"round trip {what}: {len(data)} B -> {len(comp)} B, ratio "
-          f"{len(data) / len(comp):.4f}, compress {res['compress_mbps']:.2f} "
-          f"MB/s ({t1 - t0:.3f} s), decompress {res['decompress_mbps']:.2f} "
-          f"MB/s ({t2 - t1:.3f} s), byte-identical, {n_sub} sub-blocks, "
-          f"{shards} shard(s), {k5} K5 and {k6} K6 launches", flush=True)
-    print(f"wire modes {what}: {json.dumps(modes.counts())}", flush=True)
+    res, first = {}, None
+    for call in (("first call", "second call") if shards == 1 else ("",)):
+        stats = []
+        with WireModes() as modes:
+            graphs.reset_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            comp = compress.compress_bytes(data, cfg, 1, device=device,
+                                           stats_out=stats)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            enc = graphs.stats()
+            graphs.reset_stats()
+            before = dict(kernels.LAUNCHES)
+            back = decompress_bytes(comp, cfg, device=device)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            dec = graphs.stats()
+        require(back == data, f"{what}: round trip is not byte-identical")
+        require(first is None or comp == first,
+                f"{what}: the second call's container differs")
+        first = comp
+        n_sub = sum(s.n_subblocks for s in stats)
+        run = {k: v - before[k] for k, v in kernels.LAUNCHES.items()}
+        k5, k6 = run["k5_densify"], run["k6_tables"]
+        require(k5 == 2 * shards * n_sub, f"{what}: K5 launched {k5} times "
+                f"for {n_sub} decoded sub-blocks of {shards} shards, not "
+                "twice each")
+        require(k6 == shards * n_sub, f"{what}: K6 launched {k6} times for "
+                f"{n_sub} decoded sub-blocks of {shards} shards, not once "
+                "each")
+        mb = len(data) / 1e6
+        tag = f"{what}{', ' + call if call else ''}"
+        if not res:
+            res = {"sha256": hashlib.sha256(comp).hexdigest(),
+                   "subblocks": n_sub, "compress_mbps": mb / (t1 - t0),
+                   "decompress_mbps": mb / (t2 - t1)}
+        if shards == 1:
+            graph_rows = {"compress": enc, "decompress": dec}
+            res[call] = {"compress_s": t1 - t0, "decompress_s": t2 - t1,
+                         "graphs": graph_rows}
+            print(f"graphs {tag}: {json.dumps(graph_rows)}", flush=True)
+            if call == "second call":
+                require(all(st.get("eager", 0) == 0 for g in graph_rows.values()
+                            for st in g.values() if isinstance(st, dict)),
+                        f"{tag}: a stage ran eagerly on a key seen before")
+        print(f"round trip {tag}: {len(data)} B -> {len(comp)} B, ratio "
+              f"{len(data) / len(comp):.4f}, compress "
+              f"{mb / (t1 - t0):.2f} MB/s ({t1 - t0:.3f} s), decompress "
+              f"{mb / (t2 - t1):.2f} MB/s ({t2 - t1:.3f} s), "
+              f"byte-identical, {n_sub} sub-blocks, {shards} shard(s), {k5} "
+              f"K5 and {k6} K6 launches", flush=True)
+        print(f"wire modes {tag}: {json.dumps(modes.counts())}", flush=True)
     return res
+
+
+def require_replays(what: str, res: dict) -> None:
+    """Each stage of the first call replayed its graphs on every sub-block
+    but at most one a key (the key's first sight on the card)."""
+    n = res["subblocks"]
+    g = res["first call"]["graphs"]
+    for side, stage in (("compress", "analyze_all"),
+                        ("compress", "encode_all"),
+                        ("decompress", "decode_walk_fused")):
+        st = g[side][stage]
+        require(st["replays"] >= n - st["keys"],
+                f"{what}: {stage} replayed {st['replays']} times for {n} "
+                f"sub-blocks and {st['keys']} keys")
+    print(f"graphs {what}: every stage replayed on each sub-block but the "
+          "first of each key", flush=True)
 
 
 def check_counts(what: str, names) -> dict:
@@ -1085,6 +1149,7 @@ def phase_round_trip(dev, err: bytes) -> dict:
     ]
     kernels.reset_counts()
     results = [round_trip(data, dev, what) for what, data in corpora]
+    require_replays(corpora[0][0], results[0])
     return check_counts("main path", kernels.LAUNCHES), results[0]
 
 
@@ -1372,6 +1437,7 @@ def phase_async(dev, err: bytes, err_result: dict) -> None:
         "async probe: the fetch waited for another task's stream")
     torch.cuda.synchronize()
 
+    graphs.reset_stats()
     torch.cuda.set_sync_debug_mode("error")
     try:
         blob = compress.compress_bytes(err, CodecConfig(), 1, device=dev)
@@ -1381,9 +1447,13 @@ def phase_async(dev, err: bytes, err_result: dict) -> None:
     require(back == err and hashlib.sha256(blob).hexdigest()
             == err_result["sha256"], "the round trip under sync-debug mode "
             "is not phase 3's")
+    st = graphs.stats()
+    require(all(st[s]["replays"] > 0 for s in ("analyze_all", "encode_all",
+                                               "decode_walk_fused")),
+            "the sync-debug round trip replayed no graph of some stage")
     print("sync debug: the ERR round trip raised nothing under "
-          "torch.cuda.set_sync_debug_mode('error'), byte-identical",
-          flush=True)
+          "torch.cuda.set_sync_debug_mode('error'), byte-identical, with "
+          f"its stages' graphs: {json.dumps(st)}", flush=True)
 
     from torch.profiler import ProfilerActivity, profile, record_function
 

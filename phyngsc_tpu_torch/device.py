@@ -22,6 +22,12 @@ it hands work to the device:
   so the caching allocator's memory kept for them is found again by the
   next driver call.
 
+- Staging(into=...) / views: the same one copy into the prefix of a
+  device buffer that outlives the sub-block (a captured graph's static
+  input, graphs.py), whose pieces lie at the offsets the specs give.
+- constant: the codec's small host tables on a device, uploaded once a
+  process, so that no step uploads anything (a graph replays no upload).
+
 On the CPU (a CPU-only torch cannot pin) there is nothing to pin, no event
 and no stream: upload is a plain copy, a Pending holds its array and a task
 holds None. On CUDA a failed pin, stream or event raises; nothing falls
@@ -56,8 +62,14 @@ def on_device(device: torch.device):
     return contextlib.nullcontext()
 
 
+_DTYPES: dict = {}
+
+
 def _torch_dtype(dtype: np.dtype) -> torch.dtype:
-    return torch.from_numpy(np.zeros(0, dtype)).dtype
+    t = _DTYPES.get(dtype)
+    if t is None:
+        t = _DTYPES[dtype] = torch.from_numpy(np.zeros(0, dtype)).dtype
+    return t
 
 
 class Staging:
@@ -67,14 +79,11 @@ class Staging:
     its numpy view (views), then send() makes the one copy. nbytes: the
     buffer's size, the bytes the copy moves."""
 
-    def __init__(self, specs, device, align: int = 16):
+    def __init__(self, specs, device, align: int = 16, into=None):
         self.device = torch.device(device)
+        self._into = into
         self._specs = [(tuple(shape), np.dtype(dt)) for shape, dt in specs]
-        self._offs, n = [], 0
-        for shape, dt in self._specs:
-            self._offs.append(n)
-            n += -(-int(np.prod(shape, dtype=np.int64)) * dt.itemsize
-                   // align) * align
+        self._offs, n = _layout(self._specs, align)
         self.nbytes = n
         # a CUDA device: pinned, or raise (no pageable fall back)
         self._host = torch.empty(n, dtype=torch.uint8,
@@ -88,10 +97,10 @@ class Staging:
             self.views.append(buf[o:o + size].view(dt).reshape(shape))
 
     @classmethod
-    def of(cls, arrays, device, align: int = 16) -> "Staging":
+    def of(cls, arrays, device, align: int = 16, into=None) -> "Staging":
         """A Staging holding `arrays`, each written into its view."""
         arrays = [np.asarray(a) for a in arrays]
-        st = cls([(a.shape, a.dtype) for a in arrays], device, align)
+        st = cls([(a.shape, a.dtype) for a in arrays], device, align, into)
         for v, a in zip(st.views, arrays):
             v[...] = a
         return st
@@ -99,14 +108,54 @@ class Staging:
     def send(self) -> list:
         """The pieces on the device: views of one uint8 tensor made by one
         copy, non-blocking on the current stream for a CUDA device (a
-        plain copy on the CPU)."""
-        if self.device.type == "cuda":
-            dev = self._host.to(self.device, non_blocking=True)
+        plain copy on the CPU). Made with `into` (a uint8 device buffer of
+        nbytes or more), the copy fills that buffer's prefix and the rest
+        keeps what it held."""
+        cuda = self.device.type == "cuda"
+        dev = self._into
+        if dev is None:
+            dev = (self._host.to(self.device, non_blocking=True) if cuda
+                   else self._host.clone())
+        elif (dev.dtype != torch.uint8 or dev.ndim != 1
+              or dev.numel() < self.nbytes):
+            raise ValueError(f"Staging: {self.nbytes} B into a buffer of "
+                             f"{dev.numel()} {dev.dtype}")
         else:
-            dev = self._host.clone()
-        return [dev[o:o + int(np.prod(shape, dtype=np.int64)) * dt.itemsize]
-                .view(_torch_dtype(dt)).view(shape)
-                for (shape, dt), o in zip(self._specs, self._offs)]
+            dev[:self.nbytes].copy_(self._host, non_blocking=cuda)
+        return _views(dev, self._specs, self._offs)
+
+
+def _layout(specs, align: int) -> tuple:
+    """(offsets, total bytes) of pieces (shape, numpy dtype) laid out one
+    after another, each at a multiple of `align` bytes."""
+    offs, n = [], 0
+    for shape, dt in specs:
+        offs.append(n)
+        n += -(-int(np.prod(shape, dtype=np.int64)) * np.dtype(dt).itemsize
+               // align) * align
+    return offs, n
+
+
+def _views(buf: torch.Tensor, specs, offs) -> list:
+    return [buf[o:o + int(np.prod(shape, dtype=np.int64)) * dt.itemsize]
+            .view(_torch_dtype(dt)).view(shape)
+            for (shape, dt), o in zip(specs, offs)]
+
+
+def layout_bytes(specs, align: int = 16) -> int:
+    """The bytes of a buffer laid out as a Staging of `specs` lays it
+    out."""
+    return _layout([(tuple(sh), np.dtype(dt)) for sh, dt in specs], align)[1]
+
+
+def views(buf: torch.Tensor, specs, align: int = 16) -> list:
+    """The pieces (shape, numpy dtype) of `specs` as views of the uint8
+    device buffer `buf`, at the offsets a Staging of the same specs gives
+    them: a Staging whose last piece is shorter sends into the prefix of a
+    buffer laid out with the longer one, and every other piece lands where
+    these views read it."""
+    specs = [(tuple(sh), np.dtype(dt)) for sh, dt in specs]
+    return _views(buf, specs, _layout(specs, align)[0])
 
 
 def upload(arrays, device, align: int = 16) -> list:
@@ -133,18 +182,60 @@ class Pending:
         return self._host.numpy()
 
 
-def fetch_async(t: torch.Tensor) -> Pending:
+def fetch_async(t: torch.Tensor, *more: torch.Tensor) -> Pending:
     """Start copying `t` to the host on the current stream of its device
     (the counterpart of phyngsc_tpu's copy_to_host_async). The event blocks
     the waiting thread instead of spinning on a core, which the host's
-    stages need."""
+    stages need. With `more` (1-d tensors of t's dtype and device, t 1-d
+    too), the pieces arrive one after another in one host array, each by
+    its own copy, behind one event."""
+    parts = (t, *more)
     if t.device.type != "cuda":
-        return Pending(t)
-    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-    host.copy_(t, non_blocking=True)
+        return Pending(torch.cat(parts) if more else t)
+    shape = (sum(p.numel() for p in parts),) if more else t.shape
+    host = torch.empty(shape, dtype=t.dtype, pin_memory=True)
+    at = 0
+    for p in parts:
+        host[at:at + p.numel()].copy_(p.reshape(-1) if more else p,
+                                      non_blocking=True)
+        at += p.numel()
     event = torch.cuda.Event(blocking=True)
     event.record(torch.cuda.current_stream(t.device))
     return Pending(host, event)
+
+
+_CONSTANTS: dict = {}
+_CONSTANTS_LOCK = threading.Lock()
+
+
+def constant(name: str, make, device) -> torch.Tensor:
+    """The host table make() (a numpy array, the same every call) as a
+    tensor on `device`, uploaded the first time a process asks for `name`
+    there and then kept: a graph's replay reads it where its capture found
+    it. The first upload is waited for (on its own event), so that a task
+    on another stream never reads it early. Asked for while the thread
+    captures a graph, a table not yet on the device raises: the capture
+    would record a copy from host memory that is not kept."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    key = (name, device)
+    t = _CONSTANTS.get(key)
+    if t is not None:
+        return t
+    if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(f"constant {name!r} first asked for on {device} "
+                           "while a graph is captured")
+    with _CONSTANTS_LOCK:
+        t = _CONSTANTS.get(key)
+        if t is None:
+            (t,) = upload([np.asarray(make())], device)
+            if device.type == "cuda":
+                done = torch.cuda.Event(blocking=True)
+                done.record(torch.cuda.current_stream(device))
+                done.synchronize()
+            _CONSTANTS[key] = t
+    return t
 
 
 #: the task streams of each CUDA device, slot by slot, made once a process:

@@ -12,7 +12,10 @@ with that device current (from any thread), allocates nothing itself and is
 checked with cudaGetLastError; a failed launch raises. LAUNCHES
 counts the launches of each kernel; PLAIN_ON_CUDA counts calls of the plain
 PyTorch versions on CUDA tensors (the pipeline never makes one: its wrappers
-take the plain versions only for CPU tensors).
+take the plain versions only for CPU tensors). A wrapper called while its
+thread captures a CUDA graph (graphs.py) launches nothing: its launch is
+noted in the capture's record (recording), and each replay of the graph
+adds the record to LAUNCHES (add_launches).
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import contextlib
 import threading
 
 import torch
@@ -113,6 +117,37 @@ def _count(table: dict, *names: str) -> None:
     with _lock:
         for n in names:
             table[n] += 1
+
+
+#: the launch record of the graph capture running on this thread, if any
+_capture = threading.local()
+
+
+@contextlib.contextmanager
+def recording():
+    """Context of a graph capture on this thread: the wrappers' launches
+    go to the list it yields instead of to LAUNCHES."""
+    names = []
+    _capture.names = names
+    try:
+        yield names
+    finally:
+        _capture.names = None
+
+
+def _launched(*names: str) -> None:
+    """A wrapper's launch: counted in LAUNCHES, or noted in the record of
+    the capture running on this thread."""
+    rec = getattr(_capture, "names", None)
+    if rec is not None:
+        rec.extend(names)
+    else:
+        _count(LAUNCHES, *names)
+
+
+def add_launches(names) -> None:
+    """Count the launches a replayed graph made (its capture's record)."""
+    _count(LAUNCHES, *names)
 
 
 def note_plain(name: str, t: torch.Tensor) -> None:
@@ -234,7 +269,7 @@ def histogram(sym: torch.Tensor, mask: torch.Tensor, A: int) -> torch.Tensor:
     rc = _launch(_bound().phyngsc_hist, out, sym.data_ptr(), mask.data_ptr(),
                  R, L, A, out.data_ptr())
     _check(rc, "k1_histogram")
-    _count(LAUNCHES, "k1_histogram")
+    _launched("k1_histogram")
     return out
 
 
@@ -294,7 +329,7 @@ def walk_uniform(plane: torch.Tensor, totals: torch.Tensor, luts,
         plane.shape[1], totals.data_ptr(), *tables, tree_of_pos.data_ptr(), S,
         G, Lt, L, out.data_ptr())
     _check(rc, "k2_walk_uniform")
-    _count(LAUNCHES, "k2_walk_uniform")
+    _launched("k2_walk_uniform")
     return out
 
 
@@ -331,7 +366,7 @@ def walk_masked(plane: torch.Tensor, totals: torch.Tensor,
         out.data_ptr())
     _check(rc, "k3_walk_masked")
     variant = "plain2" if plain2 else "huffman" if L == 1 else "quality"
-    _count(LAUNCHES, "k3_walk_masked", f"k3_walk_masked/{variant}")
+    _launched("k3_walk_masked", f"k3_walk_masked/{variant}")
     return out
 
 
@@ -367,7 +402,7 @@ def lookup(sym: torch.Tensor, tab: torch.Tensor,
                  None if tree is None else tree.data_ptr(), R * L, L, A, T,
                  out.data_ptr())
     _check(rc, "k4_lookup")
-    _count(LAUNCHES, "k4_lookup")
+    _launched("k4_lookup")
     return out
 
 
@@ -392,7 +427,7 @@ def densify(words: torch.Tensor, lanes: torch.Tensor, Wmax: int,
                  words.shape[0], lanes.data_ptr(), S, Wmax, Sp,
                  out.data_ptr())
     _check(rc, "k5_densify")
-    _count(LAUNCHES, "k5_densify")
+    _launched("k5_densify")
     return out
 
 
@@ -452,7 +487,7 @@ def decode_tables(lut_bits: int, streams) -> list:
         args += _NO_STREAM
     rc = _launch(_bound().phyngsc_tables, buf, lut_bits, *args)
     _check(rc, "k6_tables")
-    _count(LAUNCHES, "k6_tables")
+    _launched("k6_tables")
     return out
 
 

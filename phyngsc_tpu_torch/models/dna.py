@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from phyngsc_tpu_torch.config import CodecConfig
-from phyngsc_tpu_torch.device import upload
+from phyngsc_tpu_torch.device import constant
 from phyngsc_tpu_torch.utils.bitio import (BitReader, BitWriter, bit_length,
                                            get_uint_array, put_uint_array)
 from phyngsc_tpu_torch.ops import bitpack, histogram, huffman, lookup
@@ -51,9 +51,11 @@ def valid_mask(lens: torch.Tensor, L: int) -> torch.Tensor:
     return torch.arange(L, device=lens.device)[None, :] < lens[:, None]
 
 
-def _table(a: np.ndarray, device) -> torch.Tensor:
-    """A host table as int64 on `device`, uploaded without waiting."""
-    return upload([a.astype(np.int64)], device)[0]
+def _table(name: str, device) -> torch.Tensor:
+    """The module's host table `name` as int64 on `device`, uploaded once a
+    process (device.constant)."""
+    return constant(f"dna.{name}",
+                    lambda: globals()[name].astype(np.int64), device)
 
 
 #: ACGT, AMB_CHAR and NUC_INDEX as one int64 host array, the decode's
@@ -81,7 +83,7 @@ def transfer_ambiguity(seq: torch.Tensor, qual: torch.Tensor,
     transferred (R,) bool — records whose ambiguity moved to quality)."""
     L = seq.shape[1]
     v = valid_mask(lens, L)
-    code = _table(AMB_CODE, seq.device)[seq.long()]
+    code = _table("AMB_CODE", seq.device)[seq.long()]
     amb = (code >= 2) & v
     unknown = (code == 0) & v
     qual_ok = (qual >= 33) & (qual <= 40)
@@ -103,7 +105,7 @@ def restore_ambiguity(dna: torch.Tensor, qual: torch.Tensor,
     code = ((q - 128 + 16) >> 3).clamp(0, 16)
     orig_q = (q - 128 + 16) - (code << 3) + 33
     if amb_char is None:
-        amb_char = _table(AMB_CHAR, dna.device)
+        amb_char = _table("AMB_CHAR", dna.device)
     amb_ch = amb_char[code]
     seq = torch.where(moved, amb_ch, dna.long())
     qual_out = torch.where(moved, orig_q, q)
@@ -145,10 +147,10 @@ def delta_translate(seq: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
     wraps -1."""
     L = seq.shape[1]
     s = seq.long()
-    start = _table(NUC_INDEX, seq.device)[s[:, 0]] & 3
+    start = _table("NUC_INDEX", seq.device)[s[:, 0]] & 3
     digits = (s[:, 1:] - ord("0")).clamp(0, 3)
     nucs = start[:, None] ^ _prefix_xor2(digits)
-    out = torch.cat([s[:, :1], _table(ACGT, seq.device)[nucs]], dim=1)
+    out = torch.cat([s[:, :1], _table("ACGT", seq.device)[nucs]], dim=1)
     return torch.where(valid_mask(lens, L), out, 0).to(torch.uint8)
 
 
@@ -160,7 +162,7 @@ def delta_untranslate(seq: torch.Tensor, lens: torch.Tensor,
     L = seq.shape[1]
     s = seq.long()
     if nuc_index is None:
-        nuc_index = _table(NUC_INDEX, seq.device)
+        nuc_index = _table("NUC_INDEX", seq.device)
     idx = nuc_index[s].clamp(0, 3)
     colors = (idx[:, :-1] ^ idx[:, 1:]) + ord("0")
     out = torch.cat([s[:, :1], colors], dim=1)
@@ -223,7 +225,7 @@ def encode_device(seq: torch.Tensor, keep: torch.Tensor,
     (lookup.fused_table_np) sliced to an alphabet window at `off`, and
     groups `group` codes."""
     if mode == MODE_PLAIN:
-        vals = _table(SYM2BIT, seq.device)[seq.long()]
+        vals = _table("SYM2BIT", seq.device)[seq.long()]
         pc, pl = lookup.group_fixed2(vals, keep, 16)
     else:
         A = tab.shape[-1]
@@ -264,7 +266,7 @@ def decode_plain_walk(plane: torch.Tensor, keep: torch.Tensor,
     syms = bitpack.walk_masked(plane, keep.reshape(S, -1), None, None,
                                plain2=True).reshape(R, L)
     if acgt is None:
-        acgt = _table(ACGT, keep.device)
+        acgt = _table("ACGT", keep.device)
     return torch.where(keep, acgt[syms.long()], 0).to(torch.uint8)
 
 

@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from phyngsc_tpu_torch.config import CodecConfig
-from phyngsc_tpu_torch.device import upload
+from phyngsc_tpu_torch.device import constant
 from phyngsc_tpu_torch.utils.bitio import (BitReader, BitWriter, bit_length,
                                            get_uint_array, put_uint_array)
 from phyngsc_tpu_torch import kernels
@@ -72,8 +72,8 @@ def analyze(qual: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
     L = qual.shape[1]
     counts = histogram.position_histogram(qual, valid_mask(lens, L), ALPHABET)
     if L > MAX_TREES:
-        gid = upload([tree_group_ids(L, MAX_TREES).astype(np.int64)],
-                     counts.device)[0]
+        gid = constant(f"quality.tree_group_ids:{L}", lambda: tree_group_ids(
+            L, MAX_TREES).astype(np.int64), counts.device)
         grouped = torch.zeros((MAX_TREES, ALPHABET), dtype=torch.int32,
                               device=counts.device)
         counts = grouped.index_add_(0, gid, counts)
@@ -187,8 +187,8 @@ def encode_device(qual: torch.Tensor, lens: torch.Tensor, tab: torch.Tensor,
     """Pack the quality stream. Returns (words (n_words_cap,) int64 holding
     uint32, sub_n_words (S,) int64, total_words 0-d int64). tab, tree: the
     tables of encode_tables on the device, of code tables possibly sliced to
-    an alphabet window starting at `off` (lookup.window_np). K4 looks the
-    codes up in them."""
+    an alphabet window starting at `off` (lookup.window_np; an int, or a
+    0-d int32 tensor on the device). K4 looks the codes up in them."""
     L = qual.shape[1]
     v = valid_mask(lens, L)
     sym = (qual.int() - off).clamp(0, tab.shape[1] - 1).to(torch.uint8)

@@ -179,6 +179,50 @@ def two_level_layout(lens2d, singletons, lut_bits: int,
                   trees.astype(np.int32))
 
 
+def widest(layout: Layout, lut_bits: int, budget: int) -> int:
+    """The most blocks of their own that a Layout at layout.k can give its
+    prefixes in `budget` bytes: no more than there are prefixes, than a
+    primary entry can name, and than fit beside the primaries."""
+    k, T = layout.k, layout.trees.shape[1]
+    if k == 0:
+        return 0
+    room = budget // 2 - (T << k)
+    return max(min(T << k, ESCAPE, room >> (lut_bits - k)), 0)
+
+
+def widened(layout: Layout, own: int, lut_bits: int) -> Layout:
+    """`layout`, in which every escaped prefix has a block of its own
+    (layout.own == layout.n_blocks), with `own` blocks: the prefixes next
+    to each tree's escaped range join it in tree order (after the range,
+    then before it) until the blocks run out. Such a prefix is direct, so
+    its block holds 2^d copies of its one value, and the two-level lookup
+    still equals the full LUT at every window; K6 and two_level_plain fill
+    the blocks alike. A decode gives sub-blocks of one shape the same
+    table sizes this way (k, own, n_blocks and n are launch arguments of
+    K6, K2 and K3), with own <= widest(layout, lut_bits, budget)."""
+    k = layout.k
+    T = layout.trees.shape[1]
+    if k == 0 or own == layout.own:
+        return layout
+    if layout.own != layout.n_blocks or not layout.own <= own <= T << k:
+        raise ValueError(f"widened: {layout.own} of {layout.n_blocks} "
+                         f"blocks to {own}")
+    lo = layout.trees[0].astype(np.int64)
+    count = layout.trees[1].astype(np.int64)
+    extra = own - layout.own
+    for t in range(T):
+        if not extra:
+            break
+        after = min((1 << k) - lo[t] - count[t], extra)
+        before = min(lo[t], extra - after)
+        lo[t] -= before
+        count[t] += after + before
+        extra -= after + before
+    trees = np.stack([lo, count, np.cumsum(count) - count])
+    n = (T << k) + (own << (lut_bits - k))
+    return Layout(k, T << k, own, own, -(-n // 8) * 8, trees.astype(np.int32))
+
+
 def two_level_plain(full: torch.Tensor, trees: torch.Tensor, layout: Layout,
                     lut_bits: int) -> torch.Tensor:
     """The plain version of K6's two-level table: bitpack.two_level_luts'

@@ -187,18 +187,36 @@ def unpack_seq(words: torch.Tensor, mode: int, R: int, L: int) -> torch.Tensor:
     if mode == SEQ_2BIT_EXC:
         nb = n_words(R * L, "seq", SEQ_2BIT)
         base = unpack_seq(words[:nb], SEQ_2BIT, R, L).reshape(-1)
-        ew = words[nb:]
-        sym = ew & 0xFF
-        idx = ((ew >> 8) & 0xFFFFFF).long()
-        idx = torch.where((sym == 0) | (idx >= R * L), R * L, idx)
-        flat = torch.cat([base, base.new_zeros(1)])
-        flat.scatter_(0, idx, sym.to(torch.uint8))
-        return flat[: R * L].reshape(R, L)
+        return apply_exceptions(base, words[nb:], R * L).reshape(R, L)
     v = _unpack_words(words, 2 if mode == SEQ_2BIT else 3, R, L)
     # inverse of the nucleotide code: 0→'A' 1→'C' 2→'T' 3→'G' (4→'N')
     chars = (65 + torch.where(v == 1, 2, 0) + torch.where(v == 2, 19, 0)
              + torch.where(v == 3, 6, 0) + torch.where(v == 4, 13, 0))
     return chars.to(torch.uint8)
+
+
+def apply_exceptions(flat: torch.Tensor, ew: torch.Tensor,
+                     live) -> torch.Tensor:
+    """SEQ_2BIT_EXC's exception words `ew` written into the (n,) uint8
+    symbols `flat` (a new tensor): each word's byte at its index, but for
+    words whose byte is 0 or whose index is `live` (the cells the live rows
+    hold: an int, or a 0-d tensor on the device) or more, which the scatter
+    sends to a sink cell past the plane."""
+    n = flat.shape[0]
+    sym = ew & 0xFF
+    idx = ((ew >> 8) & 0xFFFFFF).long()
+    idx = torch.where((sym == 0) | (idx >= live), n, idx)
+    out = torch.cat([flat, flat.new_zeros(1)])
+    out.scatter_(0, idx, sym.to(torch.uint8))
+    return out[:n]
+
+
+def words_at(words: torch.Tensor, start, n: int) -> torch.Tensor:
+    """words[start : start + n] for a `start` known on the device only (a
+    0-d tensor): one gather, positions past the buffer reading its last
+    word."""
+    idx = start + torch.arange(n, device=words.device)
+    return words[idx.clamp(max=words.shape[0] - 1)]
 
 
 def unpack_qual(words: torch.Tensor, mode: int, R: int,

@@ -186,7 +186,7 @@ class ShardedSubblockCodec:
         for dev, s, q, n in zip(self.devices, seq, qual, lens):
             with on_device(dev):
                 qt, kp, q_counts, d_counts = subblock.analyze_rows(
-                    s, q, n, small, s.shape[0])
+                    s, q, n, small)
                 blob = torch.cat([q_counts.reshape(-1), d_counts.reshape(-1)])
             qual_t.append(qt)
             keep.append(kp)

@@ -140,7 +140,8 @@ def encode_subblocks_pipelined(buf: np.ndarray, regions, cfg: CodecConfig,
 
         def _advance_b():
             w, fa = a_q.pop(0)
-            b = _timed("stage_b", w, sbmod.stage_b, fa.result(), cfg, codec)
+            b = _timed("stage_b", w, sbmod.stage_b, fa.result(), cfg, codec,
+                       buckets)
             b_q.append((w, executor.submit(_timed, "stage_c", w,
                                            sbmod.stage_c, b, cfg)))
 

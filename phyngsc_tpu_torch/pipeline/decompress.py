@@ -33,6 +33,7 @@ from phyngsc_tpu_torch.device import StreamRing
 from phyngsc_tpu_torch.parallel.mesh import codec_for
 from phyngsc_tpu_torch.pipeline import subblock as sbmod
 from phyngsc_tpu_torch.utils.logging import info
+from phyngsc_tpu_torch.utils.shapes import BucketCtx
 
 
 def writer_output_starts(foot: footermod.Footer) -> list:
@@ -107,12 +108,15 @@ def _decode_stream(data, foot: footermod.Footer, cfg: Optional[CodecConfig],
     # each sub-block's task streams, handed out in task order
     ring = StreamRing(codec.devices if codec is not None else [device],
                       depth + 1)
+    # one decode executable set per run (phyngsc_tpu's decompress.py):
+    # word pads, plane heights and table layouts promoted in task order
+    buckets = BucketCtx()
     workers = cfg.host_workers or (os.cpu_count() or 2)
     with cf.ThreadPoolExecutor(max_workers=max(2, workers)) as executor:
         for wid, payload in blockmod.iter_subblocks(blocks()):
             n_tasks += 1
             st = sbmod.decode_stage_a(payload, cfg, device, executor, codec,
-                                      ring.take())
+                                      ring.take(), buckets=buckets)
             pending.append((wid, executor.submit(sbmod.decode_stage_b, st)))
             if len(pending) >= depth:
                 _drain_one()

@@ -36,28 +36,39 @@ stage_c and decode_stage_b only wait on their fetches), every upload is one non-
 (_to_device), and each fetch starts as soon as its producer is queued (the
 counts at the end of stage_a, the blobs at the end of stage_b and of
 decode_stage_a: device.fetch_async) and waits on its own event alone, so
-no host thread waits for another sub-block's work. encode_subblock /
-decode_subblock compose the stages as one task. Under PHYNGSC_TIMING the
-stages add their seconds and the host<->device bytes to TIMING, with
-phyngsc_tpu's labels.
+no host thread waits for another sub-block's work. On one device each
+stage's device work is one step of static shapes, phyngsc_tpu's one
+executable a stage: analyze_all, encode_all and decode_walk_fused, keyed
+by AnalyzeKey / EncodeKey / DecodeKey (the JAX package's static arguments
+and its bucketed sizes, promoted by the drivers' shapes.BucketCtx); the
+upload fills the prefix of a leased static input and each fetch takes
+its output's live prefix, and on a card the step is a CUDA graph captured
+once a key and replayed (graphs.py); on the CPU it runs directly. The
+sharded codec calls the same bodies (analyze_rows, encode_rows,
+decode_lanes) op by op. encode_subblock / decode_subblock compose the
+stages as one task. Under PHYNGSC_TIMING the stages add their seconds and
+the host<->device bytes to TIMING, with phyngsc_tpu's labels.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import threading
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from phyngsc_tpu_torch import kernels
+from phyngsc_tpu_torch import graphs, kernels
 from phyngsc_tpu_torch.config import CodecConfig
-from phyngsc_tpu_torch.device import (Staging, fetch_async, on_device,
-                                     resolve, task_streams, upload,
-                                     use_streams)
+from phyngsc_tpu_torch.device import (Staging, fetch_async, layout_bytes,
+                                     on_device, resolve, task_streams, upload,
+                                     use_streams, views)
 from phyngsc_tpu_torch.utils.bitio import BitReader, BitWriter
 from phyngsc_tpu_torch.utils.fastq import FastqFormatError, RecordIndex
-from phyngsc_tpu_torch.utils.shapes import bucket_length, bucket_records
+from phyngsc_tpu_torch.utils.shapes import (BucketCtx, bucket_length,
+                                            bucket_records)
 from phyngsc_tpu_torch.models import dna, quality, title
 from phyngsc_tpu_torch.ops import bitpack, lookup, tables, transfer
 from phyngsc_tpu_torch.ops.bitpack_host import bytes_to_words, words_to_bytes
@@ -169,12 +180,13 @@ def _to_device(a, device):
     return upload([a], device)[0]
 
 
-def _upload_together(arrays, device) -> list:
+def _upload_together(arrays, device, into=None) -> list:
     """Host arrays -> device tensors of the same dtypes and shapes, made by
     one host-to-device copy: each array is written once, at a 16-byte
     offset, into the pinned staging buffer (the kernels load 16 bytes at a
-    time)."""
-    return _to_device(Staging.of(arrays, device), device)
+    time). into: a uint8 device buffer (a graph's static input) whose
+    prefix the copy fills, instead of a new tensor."""
+    return _to_device(Staging.of(arrays, device, into=into), device)
 
 
 def _upload_words(words: np.ndarray, device) -> torch.Tensor:
@@ -222,60 +234,133 @@ def _upload_rows(plane: np.ndarray, lo: int, rows: int,
     return out
 
 
-def _upload_packed(seq_np: np.ndarray, qual_np: np.ndarray,
-                   lens_np: np.ndarray, Rp: int, device) -> tuple:
-    """The host (R, L) planes packed (ops/transfer) and uploaded in one copy
-    [seq words | qual words], unpacked into rows 0 .. R - 1 of zeroed
-    (Rp, L) planes, the columns past each record's length zeroed again (the
-    packer writes 'A' / chr(33) there): the raw planes exactly. Returns
-    (the sequence words' mode, the (2, Rp, L) uint8 seq/qual planes, the
-    (Rp,) lengths) on `device`."""
-    R, L = seq_np.shape
-    s_mode, s_words = transfer.pack_seq_np(seq_np)
-    q_mode, q_words = transfer.pack_qual_np(qual_np)
-    ns = s_words.shape[0]
-    # both packers' words written straight into the pinned staging buffer
-    staged = Staging([((ns + q_words.shape[0],), np.int32)], device, align=4)
-    staged.views[0].view(np.uint32)[:ns] = s_words
-    staged.views[0].view(np.uint32)[ns:] = q_words
-    (words,) = _to_device(staged, device)
-    lens = _record_lens(lens_np, Rp, device)
-    planes = torch.zeros((2, Rp, L), dtype=torch.uint8, device=device)
-    valid = quality.valid_mask(lens[:R], L)
-    planes[0, :R] = torch.where(
-        valid, transfer.unpack_seq(words[:ns], s_mode, R, L), 0)
-    planes[1, :R] = torch.where(
-        valid, transfer.unpack_qual(words[ns:], q_mode, R, L), 0)
-    return s_mode, planes, lens
-
-
 def analyze_rows(seq: torch.Tensor, qual: torch.Tensor, lens: torch.Tensor,
-                 small: bool, live: int):
+                 small: bool):
     """Ambiguity transfer of (rows, L) planes on one device and both
-    histograms (K1) of their first `live` rows: (qual_t, keep, quality
-    counts (min(L, 256), 256), DNA counts (256,)). small: every byte of the
-    sub-block's bases is < 128."""
+    histograms (K1) over every row (padding rows have length 0, so they
+    count nothing): (qual_t, keep, quality counts (min(L, 256), 256), DNA
+    counts (256,)). small: every byte of the sub-block's bases is < 128."""
     qual_t, keep, _ = dna.transfer_ambiguity(seq, qual, lens)
-    return (qual_t, keep, quality.analyze(qual_t[:live], lens[:live]),
-            dna.analyze(seq[:live], keep[:live], small_alpha=small))
+    return (qual_t, keep, quality.analyze(qual_t, lens),
+            dna.analyze(seq, keep, small_alpha=small))
+
+
+class AnalyzeKey(NamedTuple):
+    """The static arguments of analyze_all (phyngsc_tpu's _analyze_all
+    static_argnames, with the sizes its traced shapes fix): Lt None for
+    variable lengths (uploaded, else made from the live count); n_exc, the
+    bucketed exception words of SEQ_2BIT_EXC (transfer._exc_bucket)."""
+
+    Rp: int
+    L: int
+    Lt: int | None
+    seq_mode: int
+    qual_mode: int
+    n_exc: int
+    is_delta: bool
+    small: bool
+
+    def n_words(self) -> int:
+        """The word capacity: both planes of Rp rows and the exceptions."""
+        cells = self.Rp * self.L
+        return (transfer.n_words(cells, "seq", self.seq_mode) + self.n_exc
+                + transfer.n_words(cells, "qual", self.qual_mode))
+
+    def specs(self, n_words: int) -> list:
+        """Stage A's upload: the live record count (and padding), the
+        lengths when they vary, then the words (capacity n_words())."""
+        return [((4,), np.int32), ((self.Rp if self.Lt is None else 0,),
+                                  np.int32), ((n_words,), np.int32)]
+
+
+def analyze_all(hdr: torch.Tensor, lens_in: torch.Tensor,
+                words: torch.Tensor, key: AnalyzeKey) -> tuple:
+    """Stage A's device step, phyngsc_tpu's _analyze_all: the upload (hdr:
+    [R, ...] int32; lens_in: the (Rp,) lengths when they vary; words: the
+    sequence words of the R live rows [and their exceptions], then the
+    quality words) -> the (Rp, L) planes, the ambiguity transfer, both
+    histograms. Shapes and every host value come from `key`: R is read on
+    the device, the quality words start where the live rows' sequence words
+    end (one gather), and the rows past R unpack from whatever the buffer
+    holds there and are zeroed by their length 0. Returns (seq, qual_t,
+    keep, lens, counts: quality then DNA, int32)."""
+    Rp, L = key.Rp, key.L
+    dev = words.device
+    R = hdr[0].long()
+    if key.Lt is None:
+        lens = lens_in
+    else:
+        lens = torch.where(torch.arange(Rp, device=dev) < R, key.Lt,
+                           0).to(torch.int32)
+    exc = key.seq_mode == transfer.SEQ_2BIT_EXC
+    mode = transfer.SEQ_2BIT if exc else key.seq_mode
+    per = 32 // transfer._width("seq", mode)
+    seq = transfer.unpack_seq(words[:transfer.n_words(Rp * L, "seq", mode)],
+                              mode, Rp, L)
+    q_at = (R * L + per - 1) // per  # the live rows' sequence words
+    if exc:
+        ew = transfer.words_at(words, q_at, key.n_exc)
+        seq = transfer.apply_exceptions(seq.reshape(-1), ew,
+                                        R * L).reshape(Rp, L)
+        q_at = q_at + key.n_exc
+    qual = transfer.unpack_qual(transfer.words_at(
+        words, q_at, transfer.n_words(Rp * L, "qual", key.qual_mode)),
+        key.qual_mode, Rp, L)
+    valid = quality.valid_mask(lens, L)
+    seq = torch.where(valid, seq, 0)
+    qual = torch.where(valid, qual, 0)
+    if key.is_delta:
+        seq = dna.delta_translate(seq, lens)
+    qual_t, keep, q_counts, d_counts = analyze_rows(seq, qual, lens,
+                                                    key.small)
+    return seq, qual_t, keep, lens, torch.cat([q_counts.reshape(-1),
+                                               d_counts.reshape(-1)])
+
+
+class EncodeKey(NamedTuple):
+    """The static arguments of encode_all (phyngsc_tpu's _encode_all
+    static_argnames, its code tables' shapes) and the stage-A key whose
+    outputs it reads."""
+
+    analyze: AnalyzeKey
+    tables: tuple   # the shapes of the quality table, its ids[, DNA table]
+    mode: int
+    G: int
+    q_cap: int
+    d_cap: int
+    q_group: int
+    d_group: int
+
+
+def encode_all(qual_t, keep, seq, lens, q_tab, q_tree, d_tab, offs, *,
+               G: int, q_cap: int, d_cap: int, mode: int, q_group: int,
+               d_group: int) -> torch.Tensor:
+    """Stage B's device step, phyngsc_tpu's _encode_all: both streams of
+    (rows, L) planes packed with the fused tables on the device (quality
+    table, tree ids, DNA table or None in plain mode) and the alphabet
+    windows' origins offs = (q_off, d_off) (ints, or a (2,) int32 tensor on
+    the device) into one blob of 32-bit words (int32 holding the uint32
+    bits) [q_words (q_cap) | d_words (d_cap) | q_sub (S) | d_sub (S) |
+    q_total | d_total], S = rows / G; words past a stream's total are 0."""
+    q_words, q_sub, q_total = quality.encode_device(
+        qual_t, lens, q_tab, q_tree, G, q_cap, q_group, offs[0])
+    d_words, d_sub, d_total = dna.encode_device(
+        seq, keep, d_tab, mode, G, d_cap, d_group, offs[1])
+    return torch.cat([q_words, d_words, q_sub, d_sub, q_total.view(1),
+                      d_total.view(1)]).to(torch.int32)
 
 
 def encode_rows(qual_t, keep, seq, lens, tables, G: int, q_cap: int,
                 d_cap: int, mode: int, q_group: int, d_group: int,
                 q_off: int, d_off: int) -> torch.Tensor:
-    """Pack both streams of (rows, L) planes on one device with the fused
-    tables `tables` there (quality table, tree ids[, DNA table]): one blob
-    of 32-bit words (int32 holding the uint32 bits, as phyngsc_tpu's
-    _encode_all fetches them) [q_words (q_cap) | d_words (d_cap) | q_sub
-    (S) | d_sub (S) | q_total | d_total], S = rows / G."""
+    """encode_all of one shard's rows with its uploaded `tables` (quality
+    table, tree ids[, DNA table]) and host window origins (the sharded
+    codec's call)."""
     q_tab, q_tree, *d_tab = tables
-    q_words, q_sub, q_total = quality.encode_device(
-        qual_t, lens, q_tab, q_tree, G, q_cap, q_group, q_off)
-    d_words, d_sub, d_total = dna.encode_device(
-        seq, keep, d_tab[0] if d_tab else None, mode, G, d_cap, d_group,
-        d_off)
-    return torch.cat([q_words, d_words, q_sub, d_sub, q_total.view(1),
-                      d_total.view(1)]).to(torch.int32)
+    return encode_all(qual_t, keep, seq, lens, q_tab, q_tree,
+                      d_tab[0] if d_tab else None, (q_off, d_off), G=G,
+                      q_cap=q_cap, d_cap=d_cap, mode=mode, q_group=q_group,
+                      d_group=d_group)
 
 
 class _StageA:
@@ -287,7 +372,8 @@ class _StageA:
 
     __slots__ = ("R", "Lt", "L", "Rp", "lens_np", "tlens_np", "titles_np",
                  "is_delta", "seq", "lens", "qual_t", "keep", "counts_blob",
-                 "n_q_counts", "t_future", "crc", "streams")
+                 "n_q_counts", "t_future", "crc", "streams", "key",
+                 "lease")
 
 
 class _StageB:
@@ -307,12 +393,15 @@ def stage_a(buf: np.ndarray, idx: RecordIndex, cfg: CodecConfig,
     codec: optional parallel.mesh.ShardedSubblockCodec; each shard's rows
     then go to its own device (`device` is unused). streams: the task's
     streams (device.task_streams), on which the task's device work runs;
-    None: the current streams. The counts' fetch starts here, as soon as
+    None: the current streams. One device: the packed live rows go up in
+    one copy into analyze_all's input (graphs.lease: a graph's static input on a card, leased until
+    stage_b's fetch is queued). The counts' fetch starts here, as soon as
     the histograms are queued (phyngsc_tpu's _host_async)."""
     st = _StageA()
     st.t_future = None
     st.crc = None
     st.streams = streams
+    st.key = st.lease = None
     R = st.R = idx.n_records
     G = cfg.records_per_substream
     lens_np = st.lens_np = idx.seq_len.astype(np.int32)
@@ -371,17 +460,7 @@ def stage_a(buf: np.ndarray, idx: RecordIndex, cfg: CodecConfig,
             counts, st.qual_t, st.keep = codec.analyze(
                 st.seq, qual, st.lens, int(seq_np.max(initial=0)) < 128)
         else:
-            s_mode, planes, st.lens = _upload_packed(seq_np, qual_np,
-                                                     lens_np, Rp, device)
-            st.seq, qual = planes[0], planes[1]
-            if st.is_delta:
-                st.seq = dna.delta_translate(st.seq, st.lens)
-            # the histograms read the R live rows only (contiguous views):
-            # the padding rows' masks are zero, so the counts are the same
-            st.qual_t, st.keep, q_counts, d_counts = analyze_rows(
-                st.seq, qual, st.lens,
-                transfer.seq_alpha_small(s_mode, seq_np), R)
-            counts = torch.cat([q_counts.reshape(-1), d_counts.reshape(-1)])
+            counts = _analyze_device(st, seq_np, qual_np, device)
         st.counts_blob = fetch_async(counts)
     st.n_q_counts = min(L, quality.MAX_TREES) * quality.ALPHABET
     if executor is not None:
@@ -389,10 +468,55 @@ def stage_a(buf: np.ndarray, idx: RecordIndex, cfg: CodecConfig,
     return st
 
 
-def stage_b(a: _StageA, cfg: CodecConfig, codec=None) -> _StageB:
+def _analyze_device(st: _StageA, seq_np: np.ndarray, qual_np: np.ndarray,
+                    device) -> torch.Tensor:
+    """Stage A on one device: the host (R, L) planes packed (ops/transfer),
+    uploaded with the live count (and the lengths when they vary) in one
+    copy into a leased static input, and analyze_all run on it (st.lease);
+    st.key, the outputs and the counts (returned) set."""
+    R, L, Rp = st.R, st.L, st.Rp
+    s_mode, s_words = transfer.pack_seq_np(seq_np)
+    q_mode, q_words = transfer.pack_qual_np(qual_np)
+    n_exc = (s_words.shape[0] - transfer.n_words(R * L, "seq",
+                                                 transfer.SEQ_2BIT)
+             if s_mode == transfer.SEQ_2BIT_EXC else 0)
+    variable = _is_variable(st.lens_np)
+    key = st.key = AnalyzeKey(Rp, L, None if variable else st.Lt, s_mode,
+                              q_mode, n_exc, st.is_delta,
+                              transfer.seq_alpha_small(s_mode, seq_np))
+    cap = key.specs(key.n_words())
+    ls = st.lease = graphs.lease(device, "analyze_all", key,
+                                 layout_bytes(cap, 4), paired=True)
+    ns = s_words.shape[0]
+    # the header, the lengths and both packers' words, written straight
+    # into the pinned staging buffer
+    staged = Staging(key.specs(ns + q_words.shape[0]), device, align=4,
+                     into=ls.inputs)
+    hdr, lens_in, words = staged.views
+    hdr[:] = (R, 0, 0, 0)
+    if variable:
+        lens_in[:R] = st.lens_np
+        lens_in[R:] = 0
+    words.view(np.uint32)[:ns] = s_words
+    words.view(np.uint32)[ns:] = q_words
+    try:
+        _to_device(staged, device)
+        args = views(ls.inputs, cap, 4)
+        st.seq, st.qual_t, st.keep, st.lens, counts = ls.run(
+            lambda: analyze_all(*args, key))
+    except BaseException:
+        ls.release(ok=False)
+        raise
+    return counts
+
+
+def stage_b(a: _StageA, cfg: CodecConfig, codec=None,
+            buckets=None) -> _StageB:
     """codec: the parallel.mesh.ShardedSubblockCodec stage A ran with, if
-    any. The packing runs on stage A's task streams; the blobs' fetches
-    start as soon as it is queued."""
+    any. buckets: the driver's shapes.BucketCtx (stage B runs on the
+    driver's thread, in task order), from which one device's encode caps
+    are promoted. The packing runs on stage A's task streams; the blobs'
+    fetches start as soon as it is queued."""
     t0 = time.perf_counter() if TIMING is not None else 0.0
     st = _StageB()
     st.a = a
@@ -432,16 +556,16 @@ def stage_b(a: _StageA, cfg: CodecConfig, codec=None) -> _StageB:
                        S, worst)
     d_cap = _exact_cap(d_counts, st.d_plan.lens_tab if huffman_dna
                        else np.full(256, 2, np.int64), S, worst)
-    args = (G, q_cap, d_cap, st.d_plan.mode, q_group, d_group, q_off, d_off)
     with use_streams(a.streams):
         if codec is not None:
-            blobs = codec.encode(a.qual_t, a.keep, a.seq, a.lens, tables,
-                                 *args)
+            blobs = codec.encode(a.qual_t, a.keep, a.seq, a.lens, tables, G,
+                                 q_cap, d_cap, st.d_plan.mode, q_group,
+                                 d_group, q_off, d_off)
+            st.blobs = [fetch_async(b) for b in blobs]
         else:
-            blobs = [encode_rows(a.qual_t, a.keep, a.seq, a.lens,
-                                 _upload_together(tables, a.seq.device),
-                                 *args)]
-        st.blobs = [fetch_async(b) for b in blobs]
+            st.blobs = [_encode_device(a, tables, q_off, d_off, worst,
+                                       q_cap, d_cap, st.d_plan.mode, G,
+                                       q_group, d_group, buckets)]
     st.blob_layout = (q_cap, d_cap, rows // G)
     t0 = _tick("b.encode_dispatch", t0)
     # title is host-heavy: runs on a worker thread started in stage A (or
@@ -450,6 +574,40 @@ def stage_b(a: _StageA, cfg: CodecConfig, codec=None) -> _StageB:
                 else title.encode(a.titles_np, a.tlens_np, cfg))
     _tick("b.title", t0)
     return st
+
+
+def _encode_device(a: _StageA, tables: list, q_off: int, d_off: int,
+                   worst: int, q_cap: int, d_cap: int, mode: int, G: int,
+                   q_group: int, d_group: int, buckets):
+    """Stage B on one device: the tables and the window origins in one copy
+    into encode_all's static input (a child of stage A's lease), the caps
+    promoted as phyngsc_tpu promotes them (BucketCtx.pick_words, keyed by
+    Rp), encode_all run on stage A's outputs, and the fetch of the blob's
+    pieces up to the exact caps (stage_c reads exactly today's layout)
+    started; then stage A's lease is released. Returns the Pending."""
+    qc, dc = q_cap, d_cap
+    if buckets is not None:
+        qc = buckets.pick_words(f"enc_q:{a.Rp}", q_cap, worst)
+        dc = buckets.pick_words(f"enc_d:{a.Rp}", d_cap, worst)
+    pieces = [*tables, np.array([q_off, d_off], np.int32)]
+    key = EncodeKey(a.key, tuple(t.shape for t in tables), mode, G, qc, dc,
+                    q_group, d_group)
+    try:
+        ls = a.lease.child("encode_all", key, layout_bytes(
+            [(t.shape, t.dtype) for t in pieces]))
+        ups = _upload_together(pieces, a.seq.device, into=ls.inputs)
+        q_tab, q_tree, *d_tab = ups[:-1]
+        blob = ls.run(lambda: encode_all(
+            a.qual_t, a.keep, a.seq, a.lens, q_tab, q_tree,
+            d_tab[0] if d_tab else None, ups[-1], G=G, q_cap=qc, d_cap=dc,
+            mode=mode, q_group=q_group, d_group=d_group))
+        pending = fetch_async(blob[:q_cap], blob[qc:qc + d_cap],
+                              blob[qc + dc:])
+    except BaseException:
+        a.lease.release(ok=False)
+        raise
+    a.lease.release()
+    return pending
 
 
 def stage_c(b: _StageB, cfg: CodecConfig) -> bytes:
@@ -768,107 +926,240 @@ def decode_wires(p: _DParsed, cfg: CodecConfig) -> tuple:
     return q, d
 
 
-def decode_lanes(p: _DParsed, cfg: CodecConfig, device, s0: int, s1: int,
-                 wires: tuple, out_meta=None) -> torch.Tensor:
-    """Lanes (substreams) s0 .. s1 - 1 of a parsed sub-block, records
-    s0*G .. s1*G - 1, decoded on `device`: both streams' walk tables built
-    there from the code lengths (K6, one launch) -> both word planes (K5)
-    -> quality walk (K2, or K3 for variable lengths) -> keep mask -> DNA
-    walk (K3) -> ambiguity restore -> delta untranslate, as phyngsc_tpu's
-    _decode_walk_fused under PHYNGSC_DENSIFY=dma. wires: decode_wires(p,
-    cfg). Every input goes up in one copy: both streams' words from the
-    first word of lane s0 and their lane tables (bitpack.lane_table), each
-    table's lens4 words and layout rows, the live records' lengths when
-    they vary, dna.DECODE_TABLES and,
-    with out_meta, its index table. Returns
-    the (2, (s1 - s0)*G, L) uint8 seq/qual planes there, or with out_meta
-    (an _OutMeta) the live rows packed by _pack_out, the ambiguity left to
-    the host in qual8 mode."""
+class OutKey(NamedTuple):
+    """The static part of an _OutMeta: index width, 6-bit quality, qual8."""
+
+    w: int
+    q6: bool
+    qual8: bool
+
+
+class DecodeKey(NamedTuple):
+    """The static arguments of decode_walk_fused (phyngsc_tpu's
+    _decode_walk_fused static_argnames under PHYNGSC_DENSIFY=dma): rows =
+    S * G decoded; Lt None for variable lengths; n_words, the word buffer's
+    capacity; q and d, each stream's walk-table shape (n_trees, k, own,
+    n_blocks, n: the launch arguments K6, K2 and K3 take by value), d None
+    in plain mode; the planes' Wmax and Sp; out, the packed fetch's OutKey
+    (None: the restored planes)."""
+
+    rows: int
+    S: int
+    G: int
+    L: int
+    Lt: int | None
+    bits: int
+    legacy: bool
+    n_words: int
+    q: tuple
+    d: tuple | None
+    q_wmax: int
+    d_wmax: int
+    sp: int
+    out: OutKey | None
+    is_delta: bool
+
+
+def _table_shape(wire) -> tuple | None:
+    if wire is None:
+        return None
+    lay = wire.layout
+    return (wire.n_trees, lay.k, lay.own, lay.n_blocks, lay.n)
+
+
+def _padded(n: int) -> int:
+    """phyngsc_tpu's decode word pad (subblock.py _padded): 16K-word
+    granularity with 8 words of slack, at least one granule."""
+    bucket = 1 << 14
+    return max((n + 8 + bucket - 1) // bucket * bucket, bucket)
+
+
+def _widen(wire, kind: str, Rp: int, n_ids: int, buckets):
+    """The LensWire with its two-level layout widened (ops/tables.py
+    widened) to the blocks of its own that buckets.pick_words gives kind
+    at Rp, from the power of two at or above its own: sub-blocks of one
+    shape then share the walks' table sizes. Layouts with a shared block
+    of escapes are already static (their own fills the budget); so is
+    k = 0."""
+    lay = wire.layout
+    if not lay.k or lay.own != lay.n_blocks:
+        return wire
+    most = tables.widest(lay, wire.lut_bits, kernels.table_budget(n_ids))
+    natural = min(1 << max(lay.own - 1, 0).bit_length(), most)
+    own = buckets.pick_words(f"{kind}:{Rp}:{wire.n_trees}:{lay.k}", natural,
+                             most)
+    return dataclasses.replace(
+        wire, layout=tables.widened(lay, own, wire.lut_bits))
+
+
+def _decode_inputs(p: _DParsed, cfg: CodecConfig, s0: int, s1: int,
+                   wires: tuple, out_meta, buckets=None) -> tuple:
+    """The decode of lanes s0 .. s1 - 1 as decode_walk_fused takes it:
+    (key, the upload's host pieces, the word capacity, the wires). Pieces:
+    the live record count (and padding), both lane tables
+    (bitpack.lane_table; the DNA lanes' starts past the quality words),
+    dna.DECODE_TABLES, each table's lens4 words and layout rows (absent for
+    plain DNA), the lengths as uint16 when they vary (0 past the live
+    records), out_meta's index table, then both streams' words from the
+    first word of lane s0. With the driver's buckets (BucketCtx, on its
+    thread in task order) the word capacity, the plane heights and the
+    walk tables' layouts are promoted as phyngsc_tpu's decode promotes
+    its word pads and plane heights (keyed by Rp); else they are exact."""
     G, bits = p.G, cfg.max_code_len
     q_sub, d_sub = p.q_sub[s0:s1], p.d_sub[s0:s1]
     q_wmax, sp = bitpack.plane_geometry(q_sub, G, p.L, bits)
     d_wmax, _ = bitpack.plane_geometry(d_sub, G, p.L, bits)
-    rows = (s1 - s0) * G
+    S = s1 - s0
+    rows = S * G
     live = min(max(p.R - s0 * G, 0), rows)
-    q_wire, d_wire = wires
 
     def words(all_words, sub_all, sub):
         w0 = int(np.sum(sub_all[:s0], dtype=np.int64))
         w1 = w0 + int(np.sum(sub, dtype=np.int64))
         return np.asarray(all_words[w0:w1], np.uint32).view(np.int32)
 
-    # the sub-block's one H2D copy; absent pieces are empty
-    (q_words, q_lanes, d_words, d_lanes, dna_tabs, q_lens, q_rows, d_lens,
-     d_rows, lens16, index_tab) = _upload_together([
-         words(p.q_words, p.q_sub, q_sub), bitpack.lane_table(q_sub),
-         words(p.d_words, p.d_sub, d_sub), bitpack.lane_table(d_sub),
-         dna.DECODE_TABLES, *q_wire.pieces(),
-         *(d_wire.pieces() if d_wire else (_NONE, _NONE)),
-         # < 2^16 (the meta section's 16-bit Lt bounds them)
-         p.lens_np[s0 * G:s0 * G + live].astype(np.uint16).view(np.int16)
-         if p.variable else _NONE,
-         _NONE if out_meta is None else out_meta.index_table()], device)
+    q_words = words(p.q_words, p.q_sub, q_sub)
+    d_words = words(p.d_words, p.d_sub, d_sub)
+    nq = q_words.shape[0]
+    cap = nq + d_words.shape[0]
+    q_wire, d_wire = wires
+    if buckets is not None:
+        cap = (buckets.pick_words(f"dec_q:{p.Rp}", _padded(nq))
+               + buckets.pick_words(f"dec_d:{p.Rp}",
+                                    _padded(d_words.shape[0])))
+        q_wmax = buckets.pick_words(f"wmax_q:{p.Rp}", q_wmax)
+        d_wmax = buckets.pick_words(f"wmax_d:{p.Rp}", d_wmax)
+        q_wire = _widen(q_wire, "own_q", p.Rp, kernels.masked_ids(p.L)
+                        if p.variable else max(p.Lt, 1), buckets)
+        if d_wire is not None:
+            d_wire = _widen(d_wire, "own_d", p.Rp, 1, buckets)
+    d_lanes = bitpack.lane_table(d_sub)
+    d_lanes[0] += nq
+    lens16 = _NONE
     if p.variable:
-        lens = torch.zeros(rows, dtype=torch.int32, device=device)
-        lens[:live] = lens16.int() & 0xFFFF
-    else:
-        lens = _record_lens(p.lens_np, rows, device, s0 * G)
-    dna_tabs = dna.device_tables(dna_tabs)
+        # < 2^16 (the meta section's 16-bit Lt bounds them)
+        lens16 = np.zeros(rows, np.uint16)
+        lens16[:live] = p.lens_np[s0 * G:s0 * G + live]
+        lens16 = lens16.view(np.int16)
+    pieces = [np.array([live, 0, 0, 0], np.int32), bitpack.lane_table(q_sub),
+              d_lanes, dna.DECODE_TABLES, *q_wire.pieces(),
+              *(d_wire.pieces() if d_wire else (_NONE, _NONE)), lens16,
+              _NONE if out_meta is None else out_meta.index_table(),
+              np.concatenate([q_words, d_words])]
+    key = DecodeKey(
+        rows, S, G, p.L, None if p.variable else p.Lt, bits,
+        bool(cfg.legacy_tail_trees), cap, _table_shape(q_wire),
+        _table_shape(d_wire), q_wmax, d_wmax, sp,
+        None if out_meta is None else OutKey(out_meta.w, out_meta.q6,
+                                             out_meta.qual8),
+        bool(p.is_delta))
+    return key, pieces, cap, (q_wire, d_wire)
 
+
+def decode_walk_fused(pieces, key: DecodeKey, wires: tuple) -> torch.Tensor:
+    """The decode's device step, phyngsc_tpu's _decode_walk_fused under
+    PHYNGSC_DENSIFY=dma, on the pieces of _decode_inputs on one device (the
+    words up to key.n_words): both streams' walk tables built there from
+    the code lengths (K6, one launch) -> both word planes (K5, one buffer
+    of words) -> quality walk (K2, or K3 for variable lengths) -> keep mask
+    -> DNA walk (K3) -> ambiguity restore -> delta untranslate. Returns,
+    with key.out, every row packed by _pack_out (rows past the live count
+    are 0, so the live rows' words are a prefix of each part; the
+    ambiguity left to the host in qual8 mode), else the (2, rows, L)
+    uint8 seq/qual planes. wires: the LensWires the key was made with."""
+    (hdr, q_lanes, d_lanes, dna_tabs, q_lens, q_rows, d_lens, d_rows, lens16,
+     index_tab, words) = pieces
+    G, L, bits = key.G, key.L, key.bits
+    if key.Lt is None:
+        lens = lens16.int() & 0xFFFF
+    else:
+        r = torch.arange(key.rows, device=words.device)
+        lens = torch.where(r < hdr[0], key.Lt, 0).to(torch.int32)
+    dna_tabs = dna.device_tables(dna_tabs)
+    q_wire, d_wire = wires
     q_walk, d_walk = tables.walk_luts_both(
         (q_wire, q_lens, q_rows), (d_wire, d_lens, d_rows) if d_wire else None)
-    q_plane = bitpack.dense_words(q_words, q_lanes, q_wmax, sp)
-    if p.variable:
+    q_plane = bitpack.dense_words(words, q_lanes, key.q_wmax, key.sp)
+    if key.Lt is None:
         qual_t = quality.decode_walk_masked(
-            q_plane, lens, q_walk, p.L, G, bits,
-            legacy=cfg.legacy_tail_trees)
+            q_plane, lens, q_walk, L, G, bits, legacy=key.legacy)
     else:
         qual_t = quality.decode_walk(
-            q_plane, lens, q_walk, p.L, p.Lt, G, bits,
-            legacy=cfg.legacy_tail_trees)
-    keep = (qual_t < 128) & quality.valid_mask(lens, p.L)
-    d_plane = bitpack.dense_words(d_words, d_lanes, d_wmax, sp)
+            q_plane, lens, q_walk, L, key.Lt, G, bits, legacy=key.legacy)
+    keep = (qual_t < 128) & quality.valid_mask(lens, L)
+    d_plane = bitpack.dense_words(words, d_lanes, key.d_wmax, key.sp)
     if d_wire:
         dna_syms = dna.decode_huffman_walk(d_plane, keep, d_walk, G, bits)
     else:
         dna_syms = dna.decode_plain_walk(d_plane, keep, G, dna_tabs["acgt"])
-    if out_meta is not None and out_meta.qual8:
-        return _pack_out(dna_syms[:live], qual_t[:live], index_tab, out_meta)
+    if key.out is not None and key.out.qual8:
+        return _pack_out(dna_syms, qual_t, index_tab, key.out)
     seq, qual = dna.restore_ambiguity(dna_syms, qual_t, lens,
                                       dna_tabs["amb_char"])
-    if out_meta is not None:
-        return _pack_out(seq[:live], qual[:live], index_tab, out_meta)
-    if p.is_delta:
+    if key.out is not None:
+        return _pack_out(seq, qual, index_tab, key.out)
+    if key.is_delta:
         seq = dna.delta_untranslate(seq, lens, dna_tabs["nuc_index"])
     return torch.stack([seq, qual])
 
 
-def _decode_device(p: _DParsed, cfg: CodecConfig, device,
-                   codec=None) -> tuple:
-    """(blobs, out_meta) of the sub-block, pending fetch. One device: the
-    packed live rows (out_meta = _out_meta(p)), or the restored (2, Rp, L)
-    planes where out_meta is None. With a codec
-    (parallel.mesh.ShardedSubblockCodec): each shard's contiguous range of
-    whole lanes on its own device, restored planes in row order."""
+def decode_lanes(p: _DParsed, cfg: CodecConfig, device, s0: int, s1: int,
+                 wires: tuple) -> torch.Tensor:
+    """decode_walk_fused of lanes s0 .. s1 - 1 (records s0*G .. s1*G - 1)
+    on `device`, its inputs uploaded in one copy at their exact sizes (the
+    sharded codec's call): the restored (2, (s1 - s0)*G, L) planes."""
+    key, pieces, _, wires = _decode_inputs(p, cfg, s0, s1, wires, None)
+    return decode_walk_fused(_upload_together(pieces, device), key, wires)
+
+
+def _decode_device(p: _DParsed, cfg: CodecConfig, device, codec=None,
+                   buckets=None) -> tuple:
+    """(fetches, out_meta) of the sub-block, each fetch a device.Pending.
+    One device: the packed live rows (out_meta = _out_meta(p)), or the
+    restored (2, Rp, L) planes where out_meta is None, by decode_walk_fused
+    on a leased static input (graphs.lease), released once the fetch is
+    queued. With a codec (parallel.mesh.ShardedSubblockCodec): each
+    shard's contiguous range of whole lanes on its own device, restored
+    planes in row order."""
     if not p.R:
-        return [torch.zeros((2, 0, p.L), dtype=torch.uint8,
-                            device=device)], None
+        return [fetch_async(torch.zeros((2, 0, p.L), dtype=torch.uint8,
+                                        device=device))], None
     # both tables are checked before anything is uploaded
     for sub in (p.q_sub, p.d_sub):
         bitpack.plane_geometry(sub, p.G, p.L, cfg.max_code_len)
     wires = decode_wires(p, cfg)
     if codec is not None:
-        return codec.decode_walk(p, cfg, wires), None
+        return [fetch_async(b) for b in codec.decode_walk(p, cfg, wires)], None
     meta = _out_meta(p)
-    return [decode_lanes(p, cfg, device, 0, p.q_sub.shape[0], wires,
-                         meta)], meta
+    key, pieces, cap, wires = _decode_inputs(p, cfg, 0, p.q_sub.shape[0],
+                                             wires, meta, buckets)
+    specs = [(a.shape, a.dtype) for a in pieces[:-1]] + [((cap,), np.int32)]
+    ls = graphs.lease(device, "decode_walk_fused", key, layout_bytes(specs))
+    try:
+        _upload_together(pieces, device, into=ls.inputs)
+        args = views(ls.inputs, specs)
+        out = ls.run(lambda: decode_walk_fused(args, key, wires))
+        if meta is None:
+            pending = fetch_async(out)
+        else:  # the live rows' prefix of each part
+            n_sw, _ = _out_fetch_words(key.rows * p.L, meta.w, meta.q6)
+            s_live, q_live = _out_fetch_words(p.R * p.L, meta.w, meta.q6)
+            pending = fetch_async(out[:s_live], out[n_sw:n_sw + q_live])
+    except BaseException:
+        ls.release(ok=False)
+        raise
+    ls.release()
+    return [pending], meta
 
 
 def decode_stage_a(data: bytes, cfg: CodecConfig, device,
-                   executor=None, codec=None, streams=None) -> _DStage:
+                   executor=None, codec=None, streams=None,
+                   buckets=None) -> _DStage:
     """Parse on the host, then dispatch the decode on the task's streams
     (device.task_streams; None: the current streams) and start the fetch
-    of its output as soon as it is queued (phyngsc_tpu's _host_async)."""
+    of its output as soon as it is queued (phyngsc_tpu's _host_async).
+    buckets: the driver's BucketCtx (phyngsc_tpu's decompress.py keeps
+    one a run), picked here on the driver's thread in task order."""
     t0 = time.perf_counter() if TIMING is not None else 0.0
     p = _decode_parse(data, cfg, executor)
     t0 = _tick("d.parse", t0)
@@ -876,8 +1167,8 @@ def decode_stage_a(data: bytes, cfg: CodecConfig, device,
     st.R, st.L, st.lens_np, st.crc = p.R, p.L, p.lens_np, p.crc
     st.titles_np, st.tlens_np = p.titles_np, p.tlens_np
     with use_streams(streams):
-        blobs, st.out_meta = _decode_device(p, cfg, device, codec)
-        st.blobs = [fetch_async(b) for b in blobs]
+        st.blobs, st.out_meta = _decode_device(p, cfg, device, codec,
+                                               buckets)
     _tick("d.device_dispatch", t0)
     return st
 
@@ -963,7 +1254,8 @@ def decode_subblock(data: bytes, cfg: CodecConfig, device="cuda") -> bytes:
     of its own (phyngsc_tpu's decode_subblock)."""
     device = resolve(device)
     return decode_stage_b(decode_stage_a(data, cfg, device,
-                                         streams=task_streams([device])))
+                                         streams=task_streams([device]),
+                                         buckets=BucketCtx()))
 
 
 def _reassemble(R, lens_np, titles_np, tlens_np, seq_np, qual_np) -> bytes:

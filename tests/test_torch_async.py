@@ -192,9 +192,9 @@ def test_drivers_hand_out_streams_in_task_order(monkeypatch, shards):
         seen_a.append((int(idx.title_start[0]), args[-1]))
         return stage_a(buf, idx, *args)
 
-    def spy_d(payload, *args):
+    def spy_d(payload, *args, **kw):
         seen_d.append(args[-1])
-        return decode_stage_a(payload, *args)
+        return decode_stage_a(payload, *args, **kw)
 
     _NumberedRing.made.clear()
     monkeypatch.setattr(compress, "StreamRing", _NumberedRing)

@@ -1080,8 +1080,13 @@ def test_task_slots_reuse_device_memory(cuda, monkeypatch):
     streams are the same all through the process, and the caching
     allocator finds the memory it keeps for each. Fresh streams for every
     call (task_streams with no slot made yet) find none and allocate
-    anew, which is why the slots are kept."""
+    anew, which is why the slots are kept. With the stages' graphs the
+    compress after two others allocates nothing either (the graphs' pools
+    hold their memory); the slots' reason shows where the steps run
+    directly (the sharded codec, a key's first sight), checked with the
+    runner switched off."""
     from phyngsc_tpu_torch import device as devmod
+    from phyngsc_tpu_torch import graphs
 
     data = synthesize_fastq(60000, read_len=36, seed=23,
                             ambiguity_rate=0.002)
@@ -1095,12 +1100,16 @@ def test_task_slots_reuse_device_memory(cuda, monkeypatch):
         return torch.cuda.memory_stats(cuda)["num_device_alloc"] - before
 
     allocs(), allocs()
+    with_graphs = allocs()
+    monkeypatch.setattr(graphs, "runner_for", lambda device: None)
+    allocs(), allocs()
     kept = allocs()
     monkeypatch.setattr(devmod, "_SLOTS", {})
     fresh = allocs()
-    print(f"cudaMalloc calls of one compress: kept slots {kept}, fresh "
-          f"streams {fresh}")
-    assert kept == 0 < fresh
+    print(f"cudaMalloc calls of one compress: with graphs {with_graphs}; "
+          f"the steps run directly: kept slots {kept}, fresh streams "
+          f"{fresh}")
+    assert with_graphs == kept == 0 < fresh
 
 
 def _k6_case(cuda, lens, sing, bits, budget):
@@ -1322,3 +1331,177 @@ def test_tables_kernel_from_a_fresh_thread(cuda):
     t.start()
     t.join(timeout=120)
     assert not t.is_alive() and out["lay"].k > 0
+
+
+# -- the stages' CUDA graphs (graphs.py) ------------------------------------
+
+def _fresh_runner(monkeypatch):
+    """A Runner of its own for the test: every key's first sight is its."""
+    from phyngsc_tpu_torch import graphs
+
+    runner = graphs.Runner()
+    monkeypatch.setattr(graphs, "_RUNNER", runner)
+    return runner
+
+
+def _stage_outputs(buf, idx, cfg, dev, buckets, rp=None) -> list:
+    """One sub-block's stages on `dev` on a task stream: stage A's planes
+    and lengths, its counts, stage B's fetched blob, the payload and the
+    decode's fetched words, as host arrays."""
+    from phyngsc_tpu_torch.device import task_streams
+    from phyngsc_tpu_torch.pipeline import subblock
+
+    streams = task_streams([dev])
+    a = subblock.stage_a(buf, idx, cfg, dev, rp=rp, streams=streams)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    out = [t.cpu().numpy().copy() for t in (a.seq, a.qual_t, a.keep,
+                                             a.lens)]
+    b = subblock.stage_b(a, cfg, None, buckets)
+    payload = subblock.stage_c(b, cfg)
+    out += [a.counts_blob.result().copy(), b.blobs[0].result().copy(),
+            np.frombuffer(payload, np.uint8)]
+    d = subblock.decode_stage_a(payload, cfg, dev, streams=streams,
+                                buckets=buckets)
+    return out + [d.blobs[0].result().copy()]
+
+
+def _smoke_corpus(name: str) -> bytes:
+    import chip_smoke
+
+    return {
+        "ERR005195": lambda: synthesize_fastq(60000, read_len=36, seed=5),
+        "SRR Huffman": lambda: chip_smoke.srr_huffman_corpus(20000, 6),
+        "variable 100 bp": lambda: synthesize_fastq(
+            20000, read_len=100, seed=7, variable_length=True),
+        "1000 bp": lambda: synthesize_fastq(3000, read_len=1000, seed=8),
+        "SOLiD": lambda: chip_smoke.solid_corpus(20000, 9),
+        "long lanes": lambda: chip_smoke.long_lane_corpus(600, 10),
+        "65,532 bp": lambda: chip_smoke.long_read_corpus(16, 12),
+    }[name]()
+
+
+@pytest.mark.parametrize("corpus", ["ERR005195", "SRR Huffman",
+                                    "variable 100 bp", "1000 bp", "SOLiD",
+                                    "long lanes", "65,532 bp"])
+def test_graph_replays_equal_the_eager_steps(cuda, monkeypatch, corpus):
+    """The first sub-block of each chip_smoke corpus, as compress_bytes
+    cuts it: its stages run directly (graphs.direct), then three times
+    through a fresh runner (stage A warms and captures, stages B and the
+    decode run eagerly; then captures; then replays only): every output of
+    every run equals the direct steps' bit for bit."""
+    from phyngsc_tpu_torch import graphs
+    from phyngsc_tpu_torch.pipeline import compress
+    from phyngsc_tpu_torch.utils.shapes import BucketCtx
+
+    data = _smoke_corpus(corpus)
+    buf = np.frombuffer(data, np.uint8)
+    cfg = compress.resolve_substream(buf, CodecConfig())
+    _, idx = next(compress.iter_subblock_tasks(
+        buf, compress.partition_regions(buf, 1, cfg), cfg))
+    with graphs.direct():
+        want = _stage_outputs(buf, idx, cfg, cuda, BucketCtx())
+    runner = _fresh_runner(monkeypatch)
+    for _ in range(3):
+        got = _stage_outputs(buf, idx, cfg, cuda, BucketCtx())
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+    st = runner.stats()
+    assert (st["analyze_all"]["replays"], st["encode_all"]["replays"],
+            st["decode_walk_fused"]["replays"]) == (3, 2, 2)
+
+
+@pytest.mark.parametrize("case", [
+    "2048 exception words, then fewer",
+    "variable lengths, 2000 records then 1500"])
+def test_graphs_replay_over_stale_buffers(cuda, monkeypatch, case):
+    """A sub-block, again, then a smaller one of the same keys replays the
+    graphs the larger one filled: every output equals the CPU's (the
+    payload byte for byte, the decode fetch word for word)."""
+    from phyngsc_tpu_torch.utils.fastq import index_records
+    from phyngsc_tpu_torch.utils.shapes import BucketCtx
+
+    big, small = {
+        "2048 exception words, then fewer": (
+            synthesize_fastq(4000, seed=301, ambiguity_rate=0.0104),
+            synthesize_fastq(3000, seed=302, ambiguity_rate=0.0102)),
+        "variable lengths, 2000 records then 1500": (
+            synthesize_fastq(2000, read_len=100, seed=304,
+                             variable_length=True),
+            synthesize_fastq(1500, read_len=100, seed=304,
+                             variable_length=True))}[case]
+    runner = _fresh_runner(monkeypatch)
+    cfg = CodecConfig(records_per_substream=G)
+    buckets = BucketCtx()
+    for data in (big, big, small):
+        buf = np.frombuffer(data, np.uint8)
+        idx = index_records(buf)
+        got = _stage_outputs(buf, idx, cfg, cuda, buckets, rp=4096)
+        want = _stage_outputs(buf, idx, cfg, torch.device("cpu"),
+                              BucketCtx(), rp=4096)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+    st = runner.stats()
+    assert st["analyze_all"]["replays"] == 3
+    assert st["decode_walk_fused"] == {"eager": 1, "captures": 1,
+                                       "replays": 2, "keys": 1}
+
+
+def test_graph_counts_of_a_run(cuda, monkeypatch):
+    """One ERR005195 round trip through a fresh runner: stage A replays on
+    every sub-block (warmed, then captured, at each key's first sight),
+    stage B and the decode on every sub-block but one a key; K6 counts one
+    launch per decoded sub-block, K5 two, under replay; no plain version
+    runs on the card; the graphs' bytes are counted."""
+    data = synthesize_fastq(400000, read_len=36, seed=5)
+    cfg = CodecConfig(subblock_input_bytes=4 << 20)
+    runner = _fresh_runner(monkeypatch)
+    stats = []
+    blob = compress_bytes(data, cfg, 1, device=cuda, stats_out=stats)
+    n = sum(s.n_subblocks for s in stats)
+    assert n >= 8
+    kernels.reset_counts()
+    assert decompress_bytes(blob, cfg, device=cuda) == data
+    assert kernels.LAUNCHES["k6_tables"] == n
+    assert kernels.LAUNCHES["k5_densify"] == 2 * n
+    assert not any(kernels.PLAIN_ON_CUDA.values())
+    st = runner.stats()
+    a, b, d = (st[s] for s in ("analyze_all", "encode_all",
+                               "decode_walk_fused"))
+    # stage A's key: one, or two where a sub-block's exceptions take the
+    # next bucket (transfer._exc_bucket)
+    assert a["replays"] == n and a["eager"] == a["keys"] <= 2
+    assert b["replays"] >= n - b["keys"] and b["eager"] == b["keys"]
+    assert d["replays"] >= n - d["keys"] and d["eager"] == d["keys"]
+    assert 1 <= a["captures"] <= cfg.pipeline_depth + 1
+    assert st["graph_bytes"] > 0 and st["evictions"] == 0
+
+
+def test_failed_capture_raises(cuda, monkeypatch):
+    """A step that synchronizes while it is captured raises; nothing runs
+    it eagerly instead, and the card and the runner work on after it."""
+    from phyngsc_tpu_torch import graphs
+
+    runner = _fresh_runner(monkeypatch)
+    x = torch.arange(16, device=cuda)
+
+    def bad():
+        y = x * 2
+        torch.cuda.synchronize()
+        return y
+
+    ls = runner.lease(cuda, "probe", 1, 16)
+    assert torch.equal(ls.run(bad), x * 2)  # the eager first sight
+    ls.release()
+    ls = runner.lease(cuda, "probe", 1, 16)
+    with pytest.raises(Exception):
+        ls.run(bad)
+    ls.release(ok=False)
+    st = runner.stats()["probe"]
+    assert st == {"eager": 1, "captures": 0, "replays": 0, "keys": 1}
+    ls = runner.lease(cuda, "probe", 1, 16)
+    assert torch.equal(ls.run(lambda: x * 3), x * 3)  # captured and replayed
+    ls.release()
+    assert runner.stats()["probe"]["replays"] == 1
+    assert int((x * 2).sum()) == 240
+    assert graphs.stats() == runner.stats()

@@ -146,9 +146,11 @@ def _padded(nbytes: int) -> int:
 
 
 def test_compress_wire_bytes(monkeypatch):
-    """h2d: the packed words of each sub-block's live rows in one copy plus
-    stage B's fused tables; d2h: the counts and 4 B a word of the stage-B
-    blob; the container is the JAX package's."""
+    """h2d: the packed words of each sub-block's live rows in one copy
+    behind a 16-byte header (the live record count) plus stage B's fused
+    tables and window origins; d2h: the counts and 4 B a word of the
+    stage-B blob up to the exact caps; the container is the JAX
+    package's."""
     data = synthesize_fastq(3000, read_len=36, seed=95, ambiguity_rate=0.01)
     cfg = CodecConfig(subblock_input_bytes=64 << 10, records_per_substream=16)
     words, tables, fetched, modes, copies = [], [], [], [], []
@@ -164,9 +166,9 @@ def test_compress_wire_bytes(monkeypatch):
         monkeypatch.setattr(transfer, name, spy)
     together = subblock._upload_together
 
-    def spy_together(arrays, device):
+    def spy_together(arrays, device, **kw):
         tables.append(sum(_padded(a.nbytes) for a in arrays))
-        return together(arrays, device)
+        return together(arrays, device, **kw)
 
     stage_c = subblock.stage_c
 
@@ -192,7 +194,7 @@ def test_compress_wire_bytes(monkeypatch):
     n_sub = len(fetched)
     assert n_sub >= 3 and len(tables) == n_sub and len(words) == 2 * n_sub
     assert len(copies) == 2 * n_sub  # the words, then the tables
-    assert sink["h2d_bytes"] == sum(words) + sum(tables)
+    assert sink["h2d_bytes"] == sum(words) + 16 * n_sub + sum(tables)
     assert sink["d2h_bytes"] == sum(fetched)
     # live rows only: each plane packed is (R, L), R the sub-block's records
     seq = [(rows, m) for name, rows, m in modes if name == "pack_seq_np"]

@@ -11,7 +11,10 @@ compares two trees in turns): it builds its kernels and its host runtime
 (and notes the runtime's library and T), makes the ERR005195 36 bp corpus
 of chip_smoke.py (synthesize_fastq, seed 5, about --mb MB), runs one
 untimed round trip (compress_bytes -> decompress_bytes on cuda,
-byte-identical), then --reps timed ones, then one under PHYNGSC_TIMING=1,
+byte-identical), then --reps timed ones (for a tree with the stages'
+CUDA graphs, each call's seconds and graphs.stats() of its compress and
+its decompress are kept: the first call's captures, the later calls'
+replays), then one under PHYNGSC_TIMING=1,
 then one compress and one decompress under torch.profiler (CPU and CUDA
 activities), read by this tree's utils/logging.py device_activity (loaded
 from its file, since the tree measured may predate it) from the Chrome
@@ -21,7 +24,9 @@ and the seconds the calling thread spent in cudaStreamSynchronize /
 cudaEventSynchronize / cudaDeviceSynchronize, by enclosing op; then times
 stage A of the corpus's first sub-block alone (stage_a and a
 synchronize, the median of --reps + 2 calls) and, where the tree has
-ops/transfer, its host packers on that sub-block's planes. Prints one JSON
+ops/transfer, its host packers on that sub-block's planes; and a cProfile
+of the calling thread over one more compress and decompress (the
+package's functions by cumulative seconds). Prints one JSON
 line a tree (its MB/s, the stage split and the h2d / d2h bytes of both
 directions, the container's bytes, those host times in ms), then one line
 of each tree's turns pooled (medians and quartiles), then the card's name
@@ -93,17 +98,31 @@ def one(tree: str, mb: float, reps: int) -> dict:
     dev = torch.device("cuda")
     cfg = CodecConfig()
 
+    try:  # a tree with the stages' CUDA graphs
+        graphs = importlib.import_module("phyngsc_tpu_torch.graphs")
+    except ImportError:
+        graphs = None
+    calls = []  # each round trip's seconds and graph statistics
+
     def round_trip():
+        if graphs is not None:
+            graphs.reset_stats()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         blob = compress_bytes(data, cfg, 1, device=dev)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
+        enc = graphs.stats() if graphs is not None else None
+        if graphs is not None:
+            graphs.reset_stats()
         back = decompress_bytes(blob, cfg, device=dev)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         if back != data:
             raise SystemExit(f"torch_wire_ab: {tree}: round trip differs")
+        calls.append({"compress_s": t1 - t0, "decompress_s": t2 - t1,
+                      "graphs": enc and {
+                          "compress": enc, "decompress": graphs.stats()}})
         return blob, len(data) / 1e6 / (t1 - t0), len(data) / 1e6 / (t2 - t1)
 
     blob, _, _ = round_trip()
@@ -132,6 +151,7 @@ def one(tree: str, mb: float, reps: int) -> dict:
         profiled[side] = activity(prof, f"ab.{side}", trace)
         os.remove(trace)
     return {**first_subblock_ms(data, cfg, dev, reps + 2),
+            "calling_thread": calling_thread(data, blob, cfg, dev),
             "tree": label, "host_runtime": host_lib,
             "host_threads": host_threads, "cpu_count": os.cpu_count(),
             "input_bytes": len(data),
@@ -139,7 +159,39 @@ def one(tree: str, mb: float, reps: int) -> dict:
             "compress_mbps": [r[0] for r in runs],
             "decompress_mbps": [r[1] for r in runs],
             "compress_timing": enc, "decompress_timing": dec,
-            "profiled": profiled}
+            "profiled": profiled, "calls": calls}
+
+
+def calling_thread(data: bytes, blob: bytes, cfg, dev, top: int = 25) -> dict:
+    """cProfile of the calling thread (the pool's threads are not
+    profiled) over one compress and one decompress: the `top` functions of
+    the tree's package by cumulative seconds, as "file:line name" ->
+    [seconds, calls]."""
+    import cProfile
+    import pstats
+
+    import torch
+
+    from phyngsc_tpu_torch.pipeline.compress import compress_bytes
+    from phyngsc_tpu_torch.pipeline.decompress import decompress_bytes
+
+    out = {}
+    for side, call in (
+            ("compress", lambda: compress_bytes(data, cfg, 1, device=dev)),
+            ("decompress", lambda: decompress_bytes(blob, cfg, device=dev))):
+        prof = cProfile.Profile()
+        torch.cuda.synchronize()
+        prof.enable()
+        call()
+        torch.cuda.synchronize()
+        prof.disable()
+        rows = [(ct, nc, f"{os.path.relpath(fn, HERE)}:{line} {name}")
+                for (fn, line, name), (_, nc, _, ct, _)
+                in pstats.Stats(prof).stats.items()
+                if "phyngsc_tpu_torch" in fn]
+        out[side] = {k: [round(ct, 4), nc]
+                     for ct, nc, k in sorted(rows, reverse=True)[:top]}
+    return out
 
 
 def first_subblock_ms(data: bytes, cfg, dev, reps: int) -> dict:
@@ -165,8 +217,10 @@ def first_subblock_ms(data: bytes, cfg, dev, reps: int) -> dict:
     _, idx = next(compress.iter_subblock_tasks(buf, regions, cfg))
 
     def stage_a():
-        subblock.stage_a(buf, idx, cfg, dev)
+        st = subblock.stage_a(buf, idx, cfg, dev)
         torch.cuda.synchronize()
+        if getattr(st, "lease", None) is not None:  # a tree with graphs
+            st.lease.release()
 
     out = {"stage_a_ms": median_ms(stage_a)}
     try:
