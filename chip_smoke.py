@@ -107,8 +107,8 @@ Phases (any failure exits non-zero):
      torch.profiler: the card's busy share over each call's wall (the
      union of its kernel, copy and memset intervals), the calling
      thread's seconds in CPU ops and in each synchronizing CUDA call, by
-     enclosing op (utils/logging.py device_activity; phase 4b prints the
-     stage split);
+     enclosing op (tools/trace_activity.py device_activity; phase 4b
+     prints the stage split);
   6. each phase-2 kernel case's own device time from a torch.profiler trace,
      and the empty kernel's (last, so that the profiler cannot touch the
      timed round trips).
@@ -150,10 +150,23 @@ from phyngsc_tpu_torch.pipeline.decompress import (  # noqa: E402
     decompress_bytes, decompress_file)
 from phyngsc_tpu_torch.utils import bitio, native  # noqa: E402
 from phyngsc_tpu_torch import device as devmod  # noqa: E402
-from phyngsc_tpu_torch.utils.logging import device_activity  # noqa: E402
 from phyngsc_tpu_torch.utils.shapes import BucketCtx  # noqa: E402
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+
+
+def _load_device_activity():
+    """tools/trace_activity.py device_activity, loaded by its path."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "_trace_activity", os.path.join(ROOT, "tools", "trace_activity.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.device_activity
+
+
+device_activity = _load_device_activity()
 GOLDEN_DIR = os.path.join(ROOT, "tests", "golden")
 #: scratch files of the file phase, inside the checkout's git-ignored build/
 FILE_DIR = os.path.join(ROOT, "build", "chip_smoke")

@@ -85,7 +85,8 @@ def main(argv=None) -> int:
     c.add_argument("--writers", type=int, default=1,
                    help="number of logical writers (file regions)")
     c.add_argument("--profile", default=None, metavar="DIR",
-                   help="write a torch.profiler trace to DIR")
+                   help="write a torch.profiler trace to DIR, with the "
+                        "recorded spans")
     _add_codec_flags(c)
     _add_device_flags(c)
 

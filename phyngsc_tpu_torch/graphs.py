@@ -36,6 +36,8 @@ and the static outputs of its capture:
   counted in stats()["evictions"].
 - Launch counts. A capture launches nothing: kernels.recording notes the
   wrappers' launches and each replay adds them to kernels.LAUNCHES.
+- Spans. A capture is the span g.capture (utils/logging.py span), tagged
+  with its stage and key, so that a capture inside a measured window shows.
 
 On the CPU the drivers call the steps directly (runner_for gives None, and
 lease() a plain buffer), unless a Runner is installed as CPU_RUNNER (the
@@ -54,6 +56,7 @@ import time
 import torch
 
 from phyngsc_tpu_torch import kernels
+from phyngsc_tpu_torch.utils.logging import span
 
 #: graph pool and static input bytes the CUDA runner keeps at most
 BUDGET_BYTES = 16 << 30
@@ -315,8 +318,9 @@ class Runner:
                     else None)
             t0 = time.perf_counter()
             try:
-                inst.graph, inst.outputs, inst.launches = \
-                    self.backend.capture(fn, ls._dkey[0], pool)
+                with span("g.capture", tag=f"{stage} {ls._dkey[2]}"):
+                    inst.graph, inst.outputs, inst.launches = \
+                        self.backend.capture(fn, ls._dkey[0], pool)
             except BaseException:
                 inst.broken = True
                 raise

@@ -12,7 +12,9 @@ collects a CompressStats per writer. With cfg.data_shards > 1 every
 sub-block's rows split over that many devices (parallel/mesh.py
 ShardedSubblockCodec); the container is the JAX package's at the same
 shard count. Under PHYNGSC_TIMING the driver sums the stage split
-(subblock.TIMING) and logs it in one line. The host partitioning,
+(subblock.TIMING) and logs it in one line, and each call records its
+spans (subblock.recorded_calls): the calling thread's drv.* steps and
+stage_b, the pool's stage_a, stage_c and title tasks. The host partitioning,
 indexing, framing and footer are the port's copies of phyngsc_tpu's modules
 (container/, parallel/, utils/); the driver functions,
 CompressStats and resolve_substream are copied from
@@ -91,14 +93,19 @@ def compress_bytes(data: bytes, cfg: Optional[CodecConfig] = None,
                           n_writers, device, stats_out)
 
 
+@sbmod.recorded("compress")
 def compress_array(buf: np.ndarray, cfg: Optional[CodecConfig] = None,
                    n_writers: int = 1, device="cuda",
                    stats_out: Optional[list] = None) -> bytes:
     sink = io.BytesIO()
     compress_to_file(buf, sink, cfg, n_writers, device, stats_out)
-    return sink.getvalue()
+    with sbmod.span("drv.output"):
+        result = sink.getvalue()
+        del sink  # freed inside the span, not as the frame ends
+    return result
 
 
+@sbmod.recorded("compress")
 def encode_subblocks_pipelined(buf: np.ndarray, regions, cfg: CodecConfig,
                                sink, device,
                                writer_seconds: Optional[list] = None,
@@ -108,53 +115,71 @@ def encode_subblocks_pipelined(buf: np.ndarray, regions, cfg: CodecConfig,
     adds each stage's seconds to writer_seconds[region_pos]. codec:
     optional parallel.mesh.ShardedSubblockCodec (then `device` is unused).
     Returns the task count."""
-    device = resolve(device) if codec is None else None
-    buckets = BucketCtx()  # history-dependent: picked in task order only
-    G = cfg.records_per_substream
-    n_shards = codec.n_data if codec is not None else 1
-    if writer_seconds is None:
-        writer_seconds = [0.0] * len(regions)
-    t_lock = threading.Lock()
-    timing = {} if os.environ.get("PHYNGSC_TIMING") else None
-    sbmod.TIMING = timing
-    t_start = time.perf_counter()
+    span = sbmod.span
+    with span("drv.setup"):
+        device = resolve(device) if codec is None else None
+        buckets = BucketCtx()  # history-dependent: picked in task order only
+        G = cfg.records_per_substream
+        n_shards = codec.n_data if codec is not None else 1
+        if writer_seconds is None:
+            writer_seconds = [0.0] * len(regions)
+        t_lock = threading.Lock()
+        timing = {} if os.environ.get("PHYNGSC_TIMING") else None
+        sbmod.TIMING = timing
+        t_start = time.perf_counter()
+        depth = max(cfg.pipeline_depth, 1)
+        # each sub-block's task streams, handed out in task order
+        ring = StreamRing(codec.devices if codec is not None else [device],
+                          depth + 1)
+        workers = cfg.host_workers or (os.cpu_count() or 2)
+        executor = cf.ThreadPoolExecutor(max_workers=max(2, workers))
+        tasks = iter_subblock_tasks(buf, regions, cfg)
 
-    def _timed(label, w, fn, *args):
+    def _timed(label, w, i, fn, *args):
         t0 = time.perf_counter()
-        r = fn(*args)
+        with sbmod.timed_span(label, sub=i):
+            r = fn(*args)
         dt = time.perf_counter() - t0
         with t_lock:
             writer_seconds[w] += dt
-        sbmod._add(label, dt)
         return r
 
-    a_q: List = []  # [(writer_pos, Future[_StageA])]
-    b_q: List = []  # [(writer_pos, Future[bytes])]
+    a_q: List = []  # [(writer_pos, task index, Future[_StageA])]
+    b_q: List = []  # [(writer_pos, task index, Future[bytes])]
     n_tasks = 0
-    depth = max(cfg.pipeline_depth, 1)
-    # each sub-block's task streams, handed out in task order
-    ring = StreamRing(codec.devices if codec is not None else [device],
-                      depth + 1)
-    workers = cfg.host_workers or (os.cpu_count() or 2)
-    with cf.ThreadPoolExecutor(max_workers=max(2, workers)) as executor:
+    with executor:
 
         def _advance_b():
-            w, fa = a_q.pop(0)
-            b = _timed("stage_b", w, sbmod.stage_b, fa.result(), cfg, codec,
+            w, i, fa = a_q.pop(0)
+            with span("drv.wait_a", wait=True, sub=i):
+                a = fa.result()
+            b = _timed("stage_b", w, i, sbmod.stage_b, a, cfg, codec,
                        buckets)
-            b_q.append((w, executor.submit(_timed, "stage_c", w,
-                                           sbmod.stage_c, b, cfg)))
+            with span("drv.submit", sub=i):
+                b_q.append((w, i, executor.submit(
+                    sbmod.task(_timed), "stage_c", w, i, sbmod.stage_c, b,
+                    cfg)))
 
         def _advance_c():
-            w, fc = b_q.pop(0)
-            sink(w, fc.result())
+            w, i, fc = b_q.pop(0)
+            with span("drv.wait_c", wait=True, sub=i):
+                payload = fc.result()
+            with span("drv.sink", sub=i):
+                sink(w, payload)
 
-        for w, idx_slice in iter_subblock_tasks(buf, regions, cfg):
-            n_tasks += 1
-            rp = buckets.pick(idx_slice.n_records, G, n_shards)
-            a_q.append((w, executor.submit(
-                _timed, "stage_a", w, sbmod.stage_a, buf, idx_slice, cfg,
-                device, executor, rp, codec, ring.take())))
+        while True:
+            with span("drv.index"):
+                nxt = next(tasks, None)
+            if nxt is None:
+                break
+            w, idx_slice = nxt
+            i, n_tasks = n_tasks, n_tasks + 1
+            with span("drv.submit", sub=i):
+                rp = buckets.pick(idx_slice.n_records, G, n_shards)
+                a_q.append((w, i, executor.submit(
+                    sbmod.task(_timed), "stage_a", w, i, sbmod.stage_a, buf,
+                    idx_slice, cfg, device, executor, rp, codec,
+                    ring.take())))
             if len(a_q) >= depth:
                 _advance_b()
             if len(b_q) >= depth:
@@ -163,10 +188,12 @@ def encode_subblocks_pipelined(buf: np.ndarray, regions, cfg: CodecConfig,
             _advance_b()
         while b_q:
             _advance_c()
-    if timing is not None:
-        info("pipeline timing: %s total=%.2fs tasks=%d",
-             sbmod.timing_line(timing), time.perf_counter() - t_start,
-             n_tasks)
+        with span("drv.close"):
+            executor.shutdown()
+            if timing is not None:
+                info("pipeline timing: %s total=%.2fs tasks=%d",
+                     sbmod.timing_line(timing),
+                     time.perf_counter() - t_start, n_tasks)
     return n_tasks
 
 
@@ -194,6 +221,7 @@ def resolve_substream(buf: np.ndarray, cfg: CodecConfig) -> CodecConfig:
     return dataclasses.replace(cfg, records_per_substream=g)
 
 
+@sbmod.recorded("compress")
 def compress_to_file(buf: np.ndarray, out, cfg: Optional[CodecConfig] = None,
                      n_writers: int = 1, device="cuda",
                      stats_out: Optional[list] = None) -> None:
@@ -203,11 +231,12 @@ def compress_to_file(buf: np.ndarray, out, cfg: Optional[CodecConfig] = None,
     size; `buf` may be an np.memmap. stats_out, a list, receives one
     CompressStats per writer. device: one device, or with cfg.data_shards
     > 1 the shards' devices (parallel/mesh.py shard_devices)."""
-    cfg = resolve_substream(buf, cfg or CodecConfig())
-    device, codec = codec_for(device, cfg)
-    regions = partition_regions(buf, n_writers, cfg)
-    assemblers = [blockmod.BlockAssembler(reg.writer_id, cfg.block_size)
-                  for reg in regions]
+    with sbmod.span("drv.setup"):
+        cfg = resolve_substream(buf, cfg or CodecConfig())
+        device, codec = codec_for(device, cfg)
+        regions = partition_regions(buf, n_writers, cfg)
+        assemblers = [blockmod.BlockAssembler(reg.writer_id, cfg.block_size)
+                      for reg in regions]
     finished = [False] * len(regions)
     cbo: List[int] = []
     last_block_sizes = [0] * len(regions)
@@ -238,34 +267,36 @@ def compress_to_file(buf: np.ndarray, out, cfg: Optional[CodecConfig] = None,
     writer_seconds = [0.0] * len(regions)
     encode_subblocks_pipelined(buf, regions, cfg, _sink, device,
                                writer_seconds, codec)
-    for w in range(len(regions)):
-        _finish_writer(w)
+    with sbmod.span("drv.finish"):
+        for w in range(len(regions)):
+            _finish_writer(w)
 
-    if stats_out is not None:
-        for w, reg in enumerate(regions):
-            stats_out.append(CompressStats(
-                writer_id=reg.writer_id,
-                seconds=writer_seconds[w],
-                n_blocks=assemblers[w].n_blocks,
-                n_subblocks=n_subblocks[w],
-                input_bytes=reg.end - reg.start,
-                output_bytes=out_bytes[w],
-            ))
+        if stats_out is not None:
+            for w, reg in enumerate(regions):
+                stats_out.append(CompressStats(
+                    writer_id=reg.writer_id,
+                    seconds=writer_seconds[w],
+                    n_blocks=assemblers[w].n_blocks,
+                    n_subblocks=n_subblocks[w],
+                    input_bytes=reg.end - reg.start,
+                    output_bytes=out_bytes[w],
+                ))
 
-    foot = footermod.Footer(
-        fastq_size=int(buf.shape[0]),
-        block_size=cfg.block_size,
-        n_writers=n_writers,
-        overlaps=[r.overlap_used for r in regions],
-        writer_block_counts=[a.n_blocks for a in assemblers],
-        last_block_sizes=last_block_sizes,
-        cbo=cbo,
-        records_per_substream=cfg.records_per_substream,
-        max_code_len=cfg.max_code_len,
-    )
-    out.write(footermod.write_footer(foot))
+        foot = footermod.Footer(
+            fastq_size=int(buf.shape[0]),
+            block_size=cfg.block_size,
+            n_writers=n_writers,
+            overlaps=[r.overlap_used for r in regions],
+            writer_block_counts=[a.n_blocks for a in assemblers],
+            last_block_sizes=last_block_sizes,
+            cbo=cbo,
+            records_per_substream=cfg.records_per_substream,
+            max_code_len=cfg.max_code_len,
+        )
+        out.write(footermod.write_footer(foot))
 
 
+@sbmod.recorded("compress")
 def compress_file(in_path: str, out_path: str,
                   cfg: Optional[CodecConfig] = None, n_writers: int = 1,
                   stats_out: Optional[list] = None, device="cuda") -> None:

@@ -11,9 +11,11 @@ decompress_file memmaps the container and pwrites each chunk at its
 absolute offset; writer_filter decodes only the chosen writers' blocks (the
 multi-process driver's share). With cfg.data_shards > 1 each sub-block's
 lanes split over that many devices (parallel/mesh.py). Under PHYNGSC_TIMING
-the stage split (subblock.TIMING) is logged in one line. The driver
-functions are copied from phyngsc_tpu/pipeline/decompress.py (which imports
-jax).
+the stage split (subblock.TIMING) is logged in one line, and each call
+records its spans (subblock.recorded_calls): the calling thread's drv.*
+steps and decode_stage_a, the pool's decode_stage_b and title tasks. The
+driver functions are copied from phyngsc_tpu/pipeline/decompress.py (which
+imports jax).
 """
 
 from __future__ import annotations
@@ -53,6 +55,7 @@ def _read_footer_any(data) -> footermod.Footer:
     return footermod.read_footer(data)
 
 
+@sbmod.recorded("decompress")
 def _decode_stream(data, foot: footermod.Footer, cfg: Optional[CodecConfig],
                    write_at, device, writer_filter=None) -> None:
     """Calls write_at(offset, chunk) for every decoded sub-block, holding at
@@ -61,25 +64,7 @@ def _decode_stream(data, foot: footermod.Footer, cfg: Optional[CodecConfig],
     split across another writer's blocks, so the filtered stream stitches
     the same way). device: one device, or with cfg.data_shards > 1 the
     shards' devices (parallel/mesh.py shard_devices)."""
-    cfg = cfg or CodecConfig()
-    legacy_trees = foot.version <= 3
-    if (foot.records_per_substream != cfg.records_per_substream
-            or foot.max_code_len != cfg.max_code_len
-            or cfg.legacy_tail_trees != legacy_trees):
-        # container geometry + version compat win over the caller's config
-        cfg = dataclasses.replace(
-            cfg,
-            records_per_substream=foot.records_per_substream,
-            max_code_len=foot.max_code_len,
-            legacy_tail_trees=legacy_trees,
-        )
-    device, codec = codec_for(device, cfg)
-    sizes = foot.block_sizes_in_file_order()
-    starts = writer_output_starts(foot)
-    timing = sbmod.TIMING = {} if os.environ.get("PHYNGSC_TIMING") else None
-    t_start = time.perf_counter()
-    n_tasks = 0
-    cursor = list(starts)  # next output offset per writer
+    span = sbmod.span
 
     def blocks():
         off = 0
@@ -88,40 +73,77 @@ def _decode_stream(data, foot: footermod.Footer, cfg: Optional[CodecConfig],
                 yield wid, bytes(data[off : off + size])  # one at a time
             off += size
 
+    with span("drv.setup"):
+        cfg = cfg or CodecConfig()
+        legacy_trees = foot.version <= 3
+        if (foot.records_per_substream != cfg.records_per_substream
+                or foot.max_code_len != cfg.max_code_len
+                or cfg.legacy_tail_trees != legacy_trees):
+            # container geometry + version compat win over the caller's
+            # config
+            cfg = dataclasses.replace(
+                cfg,
+                records_per_substream=foot.records_per_substream,
+                max_code_len=foot.max_code_len,
+                legacy_tail_trees=legacy_trees,
+            )
+        device, codec = codec_for(device, cfg)
+        sizes = foot.block_sizes_in_file_order()
+        starts = writer_output_starts(foot)
+        timing = sbmod.TIMING = ({} if os.environ.get("PHYNGSC_TIMING")
+                                 else None)
+        t_start = time.perf_counter()
+        cursor = list(starts)  # next output offset per writer
+        depth = max(cfg.pipeline_depth, 1)
+        # each sub-block's task streams, handed out in task order
+        ring = StreamRing(codec.devices if codec is not None else [device],
+                          depth + 1)
+        # one decode executable set per run (phyngsc_tpu's decompress.py):
+        # word pads, plane heights and table layouts promoted in task order
+        buckets = BucketCtx()
+        workers = cfg.host_workers or (os.cpu_count() or 2)
+        executor = cf.ThreadPoolExecutor(max_workers=max(2, workers))
+        subblocks = blockmod.iter_subblocks(blocks())
+    n_tasks = 0
+
     written = 0
-    pending = []  # [(wid, Future[bytes])]
+    pending = []  # [(wid, task index, Future[bytes])]
 
     def _drain_one():
         nonlocal written
-        w, fut = pending.pop(0)
-        chunk = fut.result()
-        write_at(cursor[w], chunk)
-        cursor[w] += len(chunk)
-        written += len(chunk)
-        lim = starts[w + 1] if w + 1 < len(starts) else foot.fastq_size
-        if cursor[w] > lim:
-            raise ValueError(
-                f"writer {w} decoded past its region ({cursor[w]} > {lim}): "
-                "corrupt container")
+        w, i, fut = pending.pop(0)
+        with span("drv.wait_b", wait=True, sub=i):
+            chunk = fut.result()
+        with span("drv.write", sub=i):
+            write_at(cursor[w], chunk)
+            cursor[w] += len(chunk)
+            written += len(chunk)
+            lim = starts[w + 1] if w + 1 < len(starts) else foot.fastq_size
+            if cursor[w] > lim:
+                raise ValueError(
+                    f"writer {w} decoded past its region ({cursor[w]} > "
+                    f"{lim}): corrupt container")
 
-    depth = max(cfg.pipeline_depth, 1)
-    # each sub-block's task streams, handed out in task order
-    ring = StreamRing(codec.devices if codec is not None else [device],
-                      depth + 1)
-    # one decode executable set per run (phyngsc_tpu's decompress.py):
-    # word pads, plane heights and table layouts promoted in task order
-    buckets = BucketCtx()
-    workers = cfg.host_workers or (os.cpu_count() or 2)
-    with cf.ThreadPoolExecutor(max_workers=max(2, workers)) as executor:
-        for wid, payload in blockmod.iter_subblocks(blocks()):
-            n_tasks += 1
-            st = sbmod.decode_stage_a(payload, cfg, device, executor, codec,
-                                      ring.take(), buckets=buckets)
-            pending.append((wid, executor.submit(sbmod.decode_stage_b, st)))
+    with executor:
+        while True:
+            with span("drv.split"):
+                nxt = next(subblocks, None)
+            if nxt is None:
+                break
+            wid, payload = nxt
+            i, n_tasks = n_tasks, n_tasks + 1
+            with span("decode_stage_a", sub=i):
+                st = sbmod.decode_stage_a(payload, cfg, device, executor,
+                                          codec, ring.take(),
+                                          buckets=buckets)
+                pending.append((wid, i, executor.submit(
+                    sbmod.task(sbmod.decode_stage_b, "decode_stage_b"), st)))
             if len(pending) >= depth:
                 _drain_one()
         while pending:
             _drain_one()
+        with span("drv.close"):
+            executor.shutdown()
 
     if writer_filter is None:
         expect = foot.fastq_size
@@ -134,36 +156,45 @@ def _decode_stream(data, foot: footermod.Footer, cfg: Optional[CodecConfig],
             f"decompressed size {written} != expected {expect} "
             f"(footer fastq_size {foot.fastq_size})")
     if timing is not None:
-        info("decode timing: %s total=%.2fs tasks=%d",
-             sbmod.timing_line(timing), time.perf_counter() - t_start,
-             n_tasks)
+        with span("drv.close"):
+            info("decode timing: %s total=%.2fs tasks=%d",
+                 sbmod.timing_line(timing), time.perf_counter() - t_start,
+                 n_tasks)
 
 
+@sbmod.recorded("decompress")
 def decompress_bytes(data, cfg: Optional[CodecConfig] = None,
                      device="cuda") -> bytes:
     """`data` is bytes or any buffer. Chunks are assembled only after the
     decoded total matched the footer's fastq_size, and must tile the output
     exactly."""
-    foot = _read_footer_any(data)
+    with sbmod.span("drv.footer"):
+        foot = _read_footer_any(data)
     chunks = []
 
     def write_at(off: int, chunk: bytes) -> None:
         chunks.append((off, chunk))
 
     _decode_stream(data, foot, cfg, write_at, device)
-    pos = 0
-    for off, chunk in sorted(chunks, key=lambda c: c[0]):
-        if off != pos:
-            raise ValueError(
-                f"corrupt container: decoded chunks do not tile the output "
-                f"(gap/overlap at {pos} vs {off})")
-        pos += len(chunk)
-    out = bytearray(foot.fastq_size)
-    for off, chunk in chunks:
-        out[off : off + len(chunk)] = chunk
-    return bytes(out)
+    with sbmod.span("drv.assemble"):
+        pos = 0
+        for off, chunk in sorted(chunks, key=lambda c: c[0]):
+            if off != pos:
+                raise ValueError(
+                    f"corrupt container: decoded chunks do not tile the "
+                    f"output (gap/overlap at {pos} vs {off})")
+            pos += len(chunk)
+        out = bytearray(foot.fastq_size)
+        for off, chunk in chunks:
+            out[off : off + len(chunk)] = chunk
+        result = bytes(out)
+        # the pieces are freed inside the span, not as the frame ends
+        del out
+        chunks.clear()
+    return result
 
 
+@sbmod.recorded("decompress")
 def decompress_file(in_path: str, out_path: str,
                     cfg: Optional[CodecConfig] = None, device="cuda") -> None:
     """Bounded-memory file-to-file decompression: the container is
@@ -172,7 +203,8 @@ def decompress_file(in_path: str, out_path: str,
     decoded total matched the footer (a corrupt footer cannot make a huge
     sparse file)."""
     data = np.memmap(in_path, dtype=np.uint8, mode="r")
-    foot = _read_footer_any(data)
+    with sbmod.span("drv.footer"):
+        foot = _read_footer_any(data)
     fd = os.open(out_path, os.O_WRONLY | os.O_CREAT | os.O_TRUNC, 0o644)
     try:
         _decode_stream(data, foot, cfg,

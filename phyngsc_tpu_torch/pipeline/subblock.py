@@ -47,7 +47,10 @@ once a key and replayed (graphs.py); on the CPU it runs directly. The
 sharded codec calls the same bodies (analyze_rows, encode_rows,
 decode_lanes) op by op. encode_subblock / decode_subblock compose the
 stages as one task. Under PHYNGSC_TIMING the stages add their seconds and
-the host<->device bytes to TIMING, with phyngsc_tpu's labels.
+the host<->device bytes to TIMING, with phyngsc_tpu's labels, and record
+their spans (utils/logging.py's span recorder, whose one entry this module
+is: the drivers, the stages and the title codec's tasks record through
+span, task and recorded here; recorded_calls() gives the kept calls).
 """
 
 from __future__ import annotations
@@ -67,6 +70,8 @@ from phyngsc_tpu_torch.device import (Staging, fetch_async, layout_bytes,
                                      use_streams, views)
 from phyngsc_tpu_torch.utils.bitio import BitReader, BitWriter
 from phyngsc_tpu_torch.utils.fastq import FastqFormatError, RecordIndex
+from phyngsc_tpu_torch.utils.logging import (  # noqa: F401
+    recorded, recorded_calls, span, task)
 from phyngsc_tpu_torch.utils.shapes import (BucketCtx, bucket_length,
                                             bucket_records)
 from phyngsc_tpu_torch.models import dna, quality, title
@@ -107,6 +112,18 @@ def _acct(key: str, nbytes: int) -> None:
     """Transfer-byte accounting: h2d_bytes / d2h_bytes."""
     if TIMING is not None:
         _add(key, float(nbytes))
+
+
+def _added(label: str, seconds: float) -> None:
+    # _add looked up at each call, so that a wrapper installed over it sees
+    # the spans' seconds
+    _add(label, seconds)
+
+
+def timed_span(label: str, *, wait: bool = False, sub: int | None = None):
+    """The span of one of TIMING's labels: its seconds go to _add at its
+    end."""
+    return span(label, wait=wait, sub=sub, done=_added)
 
 
 def timing_line(timing: dict) -> str:
@@ -416,29 +433,32 @@ def stage_a(buf: np.ndarray, idx: RecordIndex, cfg: CodecConfig,
     TL = int(tlens_np.max()) if R else 1
     from phyngsc_tpu_torch.utils import native as _native
 
-    g3 = (_native.gather3(buf, idx.title_start, tlens_np, TL,
-                          idx.seq_start, idx.qual_start, lens_np, L)
-          if R else None)
-    if g3 is not None:
-        st.titles_np, seq_np, qual_np, qmax = g3
-    else:
-        seq_np = _gather_matrix(buf, idx.seq_start,
-                                lens_np.astype(np.int64), L)
-        qual_np = _gather_matrix(buf, idx.qual_start,
-                                 lens_np.astype(np.int64), L)
-        st.titles_np = _gather_matrix(buf, idx.title_start,
-                                      tlens_np.astype(np.int64), TL)
-        qmax = int(qual_np.max()) if R else 0
-    if R and qmax >= 128:
-        raise FastqFormatError(
-            "quality byte >= 128 in input: outside printable phred+33 and "
-            "reserved for the ambiguity transfer (phyNGSC.cpp:579 encoding)")
-    st.is_delta = dna.detect_delta(seq_np, lens_np)
+    with span("a.gather"):
+        g3 = (_native.gather3(buf, idx.title_start, tlens_np, TL,
+                              idx.seq_start, idx.qual_start, lens_np, L)
+              if R else None)
+        if g3 is not None:
+            st.titles_np, seq_np, qual_np, qmax = g3
+        else:
+            seq_np = _gather_matrix(buf, idx.seq_start,
+                                    lens_np.astype(np.int64), L)
+            qual_np = _gather_matrix(buf, idx.qual_start,
+                                     lens_np.astype(np.int64), L)
+            st.titles_np = _gather_matrix(buf, idx.title_start,
+                                          tlens_np.astype(np.int64), TL)
+            qmax = int(qual_np.max()) if R else 0
+        if R and qmax >= 128:
+            raise FastqFormatError(
+                "quality byte >= 128 in input: outside printable phred+33 "
+                "and reserved for the ambiguity transfer (phyNGSC.cpp:579 "
+                "encoding)")
+        st.is_delta = dna.detect_delta(seq_np, lens_np)
     if cfg.checksum and R:
         import zlib
 
-        span = buf[int(idx.title_start[0]) : int(idx.qual_end[-1]) + 1]
-        st.crc = zlib.crc32(np.ascontiguousarray(span))
+        with span("a.crc"):
+            text = buf[int(idx.title_start[0]) : int(idx.qual_end[-1]) + 1]
+            st.crc = zlib.crc32(np.ascontiguousarray(text))
 
     def upload_rows(dev, lo, rows):
         """Rows lo .. lo + rows - 1: the raw planes (zero padding rows) and
@@ -452,19 +472,21 @@ def stage_a(buf: np.ndarray, idx: RecordIndex, cfg: CodecConfig,
 
     with use_streams(streams):
         if codec is not None:
-            parts = []
-            for dev, lo, hi in codec.row_ranges(Rp):
-                with on_device(dev):
-                    parts.append(upload_rows(dev, lo, hi - lo))
-            st.seq, qual, st.lens = (list(x) for x in zip(*parts))
-            counts, st.qual_t, st.keep = codec.analyze(
-                st.seq, qual, st.lens, int(seq_np.max(initial=0)) < 128)
+            with span("a.upload_analyze"):
+                parts = []
+                for dev, lo, hi in codec.row_ranges(Rp):
+                    with on_device(dev):
+                        parts.append(upload_rows(dev, lo, hi - lo))
+                st.seq, qual, st.lens = (list(x) for x in zip(*parts))
+                counts, st.qual_t, st.keep = codec.analyze(
+                    st.seq, qual, st.lens, int(seq_np.max(initial=0)) < 128)
         else:
             counts = _analyze_device(st, seq_np, qual_np, device)
         st.counts_blob = fetch_async(counts)
     st.n_q_counts = min(L, quality.MAX_TREES) * quality.ALPHABET
     if executor is not None:
-        st.t_future = executor.submit(title.encode, st.titles_np, tlens_np, cfg)
+        st.t_future = executor.submit(task(title.encode, "t.encode"),
+                                      st.titles_np, tlens_np, cfg)
     return st
 
 
@@ -475,38 +497,40 @@ def _analyze_device(st: _StageA, seq_np: np.ndarray, qual_np: np.ndarray,
     copy into a leased static input, and analyze_all run on it (st.lease);
     st.key, the outputs and the counts (returned) set."""
     R, L, Rp = st.R, st.L, st.Rp
-    s_mode, s_words = transfer.pack_seq_np(seq_np)
-    q_mode, q_words = transfer.pack_qual_np(qual_np)
-    n_exc = (s_words.shape[0] - transfer.n_words(R * L, "seq",
-                                                 transfer.SEQ_2BIT)
-             if s_mode == transfer.SEQ_2BIT_EXC else 0)
-    variable = _is_variable(st.lens_np)
-    key = st.key = AnalyzeKey(Rp, L, None if variable else st.Lt, s_mode,
-                              q_mode, n_exc, st.is_delta,
-                              transfer.seq_alpha_small(s_mode, seq_np))
-    cap = key.specs(key.n_words())
-    ls = st.lease = graphs.lease(device, "analyze_all", key,
-                                 layout_bytes(cap, 4), paired=True)
-    ns = s_words.shape[0]
-    # the header, the lengths and both packers' words, written straight
-    # into the pinned staging buffer
-    staged = Staging(key.specs(ns + q_words.shape[0]), device, align=4,
-                     into=ls.inputs)
-    hdr, lens_in, words = staged.views
-    hdr[:] = (R, 0, 0, 0)
-    if variable:
-        lens_in[:R] = st.lens_np
-        lens_in[R:] = 0
-    words.view(np.uint32)[:ns] = s_words
-    words.view(np.uint32)[ns:] = q_words
-    try:
-        _to_device(staged, device)
-        args = views(ls.inputs, cap, 4)
-        st.seq, st.qual_t, st.keep, st.lens, counts = ls.run(
-            lambda: analyze_all(*args, key))
-    except BaseException:
-        ls.release(ok=False)
-        raise
+    with span("a.pack"):
+        s_mode, s_words = transfer.pack_seq_np(seq_np)
+        q_mode, q_words = transfer.pack_qual_np(qual_np)
+        n_exc = (s_words.shape[0] - transfer.n_words(R * L, "seq",
+                                                     transfer.SEQ_2BIT)
+                 if s_mode == transfer.SEQ_2BIT_EXC else 0)
+        variable = _is_variable(st.lens_np)
+        key = st.key = AnalyzeKey(Rp, L, None if variable else st.Lt, s_mode,
+                                  q_mode, n_exc, st.is_delta,
+                                  transfer.seq_alpha_small(s_mode, seq_np))
+    with span("a.upload_analyze"):
+        cap = key.specs(key.n_words())
+        ls = st.lease = graphs.lease(device, "analyze_all", key,
+                                     layout_bytes(cap, 4), paired=True)
+        ns = s_words.shape[0]
+        # the header, the lengths and both packers' words, written straight
+        # into the pinned staging buffer
+        staged = Staging(key.specs(ns + q_words.shape[0]), device, align=4,
+                         into=ls.inputs)
+        hdr, lens_in, words = staged.views
+        hdr[:] = (R, 0, 0, 0)
+        if variable:
+            lens_in[:R] = st.lens_np
+            lens_in[R:] = 0
+        words.view(np.uint32)[:ns] = s_words
+        words.view(np.uint32)[ns:] = q_words
+        try:
+            _to_device(staged, device)
+            args = views(ls.inputs, cap, 4)
+            st.seq, st.qual_t, st.keep, st.lens, counts = ls.run(
+                lambda: analyze_all(*args, key))
+        except BaseException:
+            ls.release(ok=False)
+            raise
     return counts
 
 
@@ -517,62 +541,65 @@ def stage_b(a: _StageA, cfg: CodecConfig, codec=None,
     driver's thread, in task order), from which one device's encode caps
     are promoted. The packing runs on stage A's task streams; the blobs'
     fetches start as soon as it is queued."""
-    t0 = time.perf_counter() if TIMING is not None else 0.0
     st = _StageB()
     st.a = a
     G = cfg.records_per_substream
-    counts = _fetch(a.counts_blob)  # the one stage-A fetch
-    t0 = _tick("b.counts_fetch", t0)
-    q_counts = counts[: a.n_q_counts].reshape(-1, quality.ALPHABET)
-    d_counts = counts[a.n_q_counts :]
-    st.q_tables, q_group = quality.build_tables_adaptive(q_counts, cfg)
-    st.d_plan = dna.plan(d_counts, cfg)
-    huffman_dna = st.d_plan.mode == dna.MODE_HUFFMAN
-    d_group = (lookup.group_for(int(st.d_plan.lens_tab.max()) or 1)
-               if huffman_dna else 2)
-    # fuse the code tables on the host, sliced to the occupied alphabet
-    # window as the JAX encoder slices them (header serialization keeps the
-    # full tables); they go to the device with the quality tree ids in one
-    # copy
-    q_off, q_A = lookup.window_np(q_counts)
-    tables = list(quality.encode_tables(
-        st.q_tables.codes[:, q_off:q_off + q_A],
-        st.q_tables.lens[:, q_off:q_off + q_A], a.L))
-    d_off = 0
-    if huffman_dna:
-        d_off, d_A = lookup.window_np(d_counts.reshape(1, -1))
-        tables.append(lookup.fused_table_np(
-            st.d_plan.codes_tab[None, d_off:d_off + d_A],
-            st.d_plan.lens_tab[None, d_off:d_off + d_A]).view(np.int16))
-    t0 = _tick("b.tables", t0)
+    with timed_span("b.counts_fetch", wait=True):
+        counts = _fetch(a.counts_blob)  # the one stage-A fetch
+    with timed_span("b.tables"):
+        q_counts = counts[: a.n_q_counts].reshape(-1, quality.ALPHABET)
+        d_counts = counts[a.n_q_counts :]
+        with span("b.tables.quality"):
+            st.q_tables, q_group = quality.build_tables_adaptive(q_counts,
+                                                                 cfg)
+        with span("b.tables.dna"):
+            st.d_plan = dna.plan(d_counts, cfg)
+        huffman_dna = st.d_plan.mode == dna.MODE_HUFFMAN
+        d_group = (lookup.group_for(int(st.d_plan.lens_tab.max()) or 1)
+                   if huffman_dna else 2)
+        # fuse the code tables on the host, sliced to the occupied alphabet
+        # window as the JAX encoder slices them (header serialization keeps
+        # the full tables); they go to the device with the quality tree ids
+        # in one copy
+        with span("b.tables.fuse"):
+            q_off, q_A = lookup.window_np(q_counts)
+            tables = list(quality.encode_tables(
+                st.q_tables.codes[:, q_off:q_off + q_A],
+                st.q_tables.lens[:, q_off:q_off + q_A], a.L))
+            d_off = 0
+            if huffman_dna:
+                d_off, d_A = lookup.window_np(d_counts.reshape(1, -1))
+                tables.append(lookup.fused_table_np(
+                    st.d_plan.codes_tab[None, d_off:d_off + d_A],
+                    st.d_plan.lens_tab[None, d_off:d_off + d_A]
+                ).view(np.int16))
 
-    S = a.Rp // G
-    # a shard's stream needs at most the whole sub-block's words and at most
-    # the worst case of its own rows
-    rows = a.Rp // (codec.n_data if codec is not None else 1)
-    worst = _word_cap(rows, a.L, G)
-    q_cap = _exact_cap(q_counts, quality.lens_rows_for(st.q_tables,
-                                                       q_counts.shape[0]),
-                       S, worst)
-    d_cap = _exact_cap(d_counts, st.d_plan.lens_tab if huffman_dna
-                       else np.full(256, 2, np.int64), S, worst)
-    with use_streams(a.streams):
-        if codec is not None:
-            blobs = codec.encode(a.qual_t, a.keep, a.seq, a.lens, tables, G,
-                                 q_cap, d_cap, st.d_plan.mode, q_group,
-                                 d_group, q_off, d_off)
-            st.blobs = [fetch_async(b) for b in blobs]
-        else:
-            st.blobs = [_encode_device(a, tables, q_off, d_off, worst,
-                                       q_cap, d_cap, st.d_plan.mode, G,
-                                       q_group, d_group, buckets)]
-    st.blob_layout = (q_cap, d_cap, rows // G)
-    t0 = _tick("b.encode_dispatch", t0)
+    with timed_span("b.encode_dispatch"):
+        S = a.Rp // G
+        # a shard's stream needs at most the whole sub-block's words and at
+        # most the worst case of its own rows
+        rows = a.Rp // (codec.n_data if codec is not None else 1)
+        worst = _word_cap(rows, a.L, G)
+        q_cap = _exact_cap(q_counts, quality.lens_rows_for(
+            st.q_tables, q_counts.shape[0]), S, worst)
+        d_cap = _exact_cap(d_counts, st.d_plan.lens_tab if huffman_dna
+                           else np.full(256, 2, np.int64), S, worst)
+        with use_streams(a.streams):
+            if codec is not None:
+                blobs = codec.encode(a.qual_t, a.keep, a.seq, a.lens, tables,
+                                     G, q_cap, d_cap, st.d_plan.mode,
+                                     q_group, d_group, q_off, d_off)
+                st.blobs = [fetch_async(b) for b in blobs]
+            else:
+                st.blobs = [_encode_device(a, tables, q_off, d_off, worst,
+                                           q_cap, d_cap, st.d_plan.mode, G,
+                                           q_group, d_group, buckets)]
+        st.blob_layout = (q_cap, d_cap, rows // G)
     # title is host-heavy: runs on a worker thread started in stage A (or
     # inline here) while the device packs quality/dna
-    st.t_enc = (a.t_future.result() if a.t_future is not None
-                else title.encode(a.titles_np, a.tlens_np, cfg))
-    _tick("b.title", t0)
+    with timed_span("b.title", wait=a.t_future is not None):
+        st.t_enc = (a.t_future.result() if a.t_future is not None
+                    else title.encode(a.titles_np, a.tlens_np, cfg))
     return st
 
 
@@ -611,11 +638,16 @@ def _encode_device(a: _StageA, tables: list, q_off: int, d_off: int,
 
 
 def stage_c(b: _StageB, cfg: CodecConfig) -> bytes:
+    with timed_span("c.fetch", wait=True):
+        # the stage-B fetch, one a shard: each waits for its own event only
+        blobs = [_fetch(x).view(np.uint32) for x in b.blobs]
+    with span("c.assemble"):
+        return _assemble(b, blobs)
+
+
+def _assemble(b: _StageB, blobs: list) -> bytes:
+    """Stage C's sections from the fetched blobs."""
     a = b.a
-    t0 = time.perf_counter() if TIMING is not None else 0.0
-    # the stage-B fetch, one a shard: each waits for its own event only
-    blobs = [_fetch(x).view(np.uint32) for x in b.blobs]
-    _tick("c.fetch", t0)
     nqw, ndw, S = b.blob_layout
     # substreams never cross a shard: the tables concatenate and each
     # shard's words, trimmed to its total, follow the previous shard's
@@ -700,74 +732,84 @@ def _decode_parse(data: bytes, cfg: CodecConfig, executor=None) -> _DParsed:
     """executor: optional ThreadPoolExecutor — the title decode then runs on
     a worker thread and p.titles_np is a Future (p.tlens_np None)."""
     p = _DParsed()
-    sections = []
-    off = 0
-    for _ in range(4):
-        n = int.from_bytes(data[off : off + 4], "big")
-        sections.append(data[off + 4 : off + 4 + n])
-        off += 4 + n
-    meta_sec, title_sec, quality_sec, dna_sec = sections
+    with span("d.parse.meta"):
+        sections = []
+        off = 0
+        for _ in range(4):
+            n = int.from_bytes(data[off : off + 4], "big")
+            sections.append(data[off + 4 : off + 4 + n])
+            off += 4 + n
+        meta_sec, title_sec, quality_sec, dna_sec = sections
 
-    br = BitReader(meta_sec)
-    R = p.R = br.get_uint(4)
-    Lt = p.Lt = br.get_bits(16)
-    p.L = bucket_length(Lt)
-    flags = br.get_byte()
-    p.variable = bool(flags & FLAG_VARIABLE_LENGTH)
-    p.is_delta = bool(flags & FLAG_DELTA)
-    p.crc = br.get_uint(4) if flags & FLAG_CRC else None
-    if p.variable:
-        w = br.get_byte()
-        br.align()
-        p.lens_np = _unpack_fixed_np(
-            br.get_bytes(((R * w) + 7) // 8), w, R).astype(np.int32)
-        if R and int(p.lens_np.max()) > Lt:
-            raise ValueError("corrupt meta: a record length exceeds the "
-                             "stored maximum")
-    else:
-        br.align()
-        p.lens_np = np.full(R, Lt, np.int32)
-    G = p.G = cfg.records_per_substream
+        br = BitReader(meta_sec)
+        R = p.R = br.get_uint(4)
+        Lt = p.Lt = br.get_bits(16)
+        p.L = bucket_length(Lt)
+        flags = br.get_byte()
+        p.variable = bool(flags & FLAG_VARIABLE_LENGTH)
+        p.is_delta = bool(flags & FLAG_DELTA)
+        p.crc = br.get_uint(4) if flags & FLAG_CRC else None
+        if p.variable:
+            w = br.get_byte()
+            br.align()
+            p.lens_np = _unpack_fixed_np(
+                br.get_bytes(((R * w) + 7) // 8), w, R).astype(np.int32)
+            if R and int(p.lens_np.max()) > Lt:
+                raise ValueError("corrupt meta: a record length exceeds the "
+                                 "stored maximum")
+        else:
+            br.align()
+            p.lens_np = np.full(R, Lt, np.int32)
+        G = p.G = cfg.records_per_substream
 
-    br = BitReader(title_sec)
-    t_plan, n_fixed, n_char, t_sub = title.read_header(br, R)
-    br.align()
-    fixed_words = bytes_to_words(br.get_bytes(4 * n_fixed))
-    char_words = bytes_to_words(br.get_bytes(4 * n_char))
-    if executor is not None and R:
-        p.titles_np = executor.submit(
-            title.decode, t_plan, fixed_words, char_words, t_sub, R, cfg)
-        p.tlens_np = None
-    else:
-        p.titles_np, p.tlens_np = title.decode(
-            t_plan, fixed_words, char_words, t_sub, R, cfg)
+    with span("d.parse.title"):
+        br = BitReader(title_sec)
+        t_plan, n_fixed, n_char, t_sub = title.read_header(br, R)
+        br.align()
+        fixed_words = bytes_to_words(br.get_bytes(4 * n_fixed))
+        char_words = bytes_to_words(br.get_bytes(4 * n_char))
+        if executor is not None and R:
+            p.titles_np = executor.submit(
+                task(title.decode, "t.decode"), t_plan, fixed_words,
+                char_words, t_sub, R, cfg)
+            p.tlens_np = None
+        else:
+            p.titles_np, p.tlens_np = title.decode(
+                t_plan, fixed_words, char_words, t_sub, R, cfg)
 
     # quality first: it carries the ambiguity transfer
-    br = BitReader(quality_sec)
-    p.q_tables, p.q_sub, q_total = quality.read_header(br)
-    br.align()
-    _check_tables(p.q_tables.lens, p.q_tables.singletons, "quality", cfg)
-    # Rp comes from the stored substream table (agnostic to the encoder's
-    # bucketing)
-    p.Rp = p.q_sub.shape[0] * G if p.q_sub.shape[0] else bucket_records(R, G)
-    if p.Rp < R or (R and not p.q_sub.shape[0]):
-        raise ValueError(
-            f"corrupt quality substream table: capacity {p.Rp} < {R} records")
+    with span("d.parse.quality"):
+        br = BitReader(quality_sec)
+        p.q_tables, p.q_sub, q_total = quality.read_header(br)
+        br.align()
+        _check_tables(p.q_tables.lens, p.q_tables.singletons, "quality",
+                      cfg)
+        # Rp comes from the stored substream table (agnostic to the
+        # encoder's bucketing)
+        p.Rp = (p.q_sub.shape[0] * G if p.q_sub.shape[0]
+                else bucket_records(R, G))
+        if p.Rp < R or (R and not p.q_sub.shape[0]):
+            raise ValueError(f"corrupt quality substream table: capacity "
+                             f"{p.Rp} < {R} records")
 
-    dbr = BitReader(dna_sec)
-    p.d_plan, p.d_sub, d_total, is_delta_hdr = dna.read_header(dbr)
-    p.is_delta = p.is_delta or is_delta_hdr
-    if p.d_plan.mode != dna.MODE_PLAIN:
-        _check_tables(p.d_plan.lens_tab[None, :],
-                      np.array([p.d_plan.singleton], np.int32), "DNA", cfg)
-    if p.d_sub.shape[0] != p.q_sub.shape[0]:
-        raise ValueError(
-            "corrupt container: DNA substream table length "
-            f"{p.d_sub.shape[0]} != quality's {p.q_sub.shape[0]}")
-    dbr.align()
-    p.q_words = bytes_to_words(br.get_bytes(4 * q_total))
-    p.d_words = bytes_to_words(dbr.get_bytes(4 * d_total))
-    _output_alphabets(p)
+    with span("d.parse.dna"):
+        dbr = BitReader(dna_sec)
+        p.d_plan, p.d_sub, d_total, is_delta_hdr = dna.read_header(dbr)
+        p.is_delta = p.is_delta or is_delta_hdr
+        if p.d_plan.mode != dna.MODE_PLAIN:
+            _check_tables(p.d_plan.lens_tab[None, :],
+                          np.array([p.d_plan.singleton], np.int32), "DNA",
+                          cfg)
+        if p.d_sub.shape[0] != p.q_sub.shape[0]:
+            raise ValueError(
+                "corrupt container: DNA substream table length "
+                f"{p.d_sub.shape[0]} != quality's {p.q_sub.shape[0]}")
+        dbr.align()
+    with span("d.parse.words"):
+        p.q_words = bytes_to_words(br.get_bytes(4 * q_total))
+        p.d_words = bytes_to_words(dbr.get_bytes(4 * d_total))
+    with span("d.parse.alphabets"):
+        _output_alphabets(p)
     return p
 
 
@@ -1124,31 +1166,38 @@ def _decode_device(p: _DParsed, cfg: CodecConfig, device, codec=None,
     if not p.R:
         return [fetch_async(torch.zeros((2, 0, p.L), dtype=torch.uint8,
                                         device=device))], None
-    # both tables are checked before anything is uploaded
-    for sub in (p.q_sub, p.d_sub):
-        bitpack.plane_geometry(sub, p.G, p.L, cfg.max_code_len)
-    wires = decode_wires(p, cfg)
+    with span("d.wires"):
+        # both tables are checked before anything is uploaded
+        for sub in (p.q_sub, p.d_sub):
+            bitpack.plane_geometry(sub, p.G, p.L, cfg.max_code_len)
+        wires = decode_wires(p, cfg)
     if codec is not None:
-        return [fetch_async(b) for b in codec.decode_walk(p, cfg, wires)], None
-    meta = _out_meta(p)
-    key, pieces, cap, wires = _decode_inputs(p, cfg, 0, p.q_sub.shape[0],
-                                             wires, meta, buckets)
-    specs = [(a.shape, a.dtype) for a in pieces[:-1]] + [((cap,), np.int32)]
-    ls = graphs.lease(device, "decode_walk_fused", key, layout_bytes(specs))
-    try:
-        _upload_together(pieces, device, into=ls.inputs)
-        args = views(ls.inputs, specs)
-        out = ls.run(lambda: decode_walk_fused(args, key, wires))
-        if meta is None:
-            pending = fetch_async(out)
-        else:  # the live rows' prefix of each part
-            n_sw, _ = _out_fetch_words(key.rows * p.L, meta.w, meta.q6)
-            s_live, q_live = _out_fetch_words(p.R * p.L, meta.w, meta.q6)
-            pending = fetch_async(out[:s_live], out[n_sw:n_sw + q_live])
-    except BaseException:
-        ls.release(ok=False)
-        raise
-    ls.release()
+        with span("d.launch"):
+            return [fetch_async(b)
+                    for b in codec.decode_walk(p, cfg, wires)], None
+    with span("d.inputs"):
+        meta = _out_meta(p)
+        key, pieces, cap, wires = _decode_inputs(p, cfg, 0, p.q_sub.shape[0],
+                                                 wires, meta, buckets)
+    with span("d.launch"):
+        specs = ([(a.shape, a.dtype) for a in pieces[:-1]]
+                 + [((cap,), np.int32)])
+        ls = graphs.lease(device, "decode_walk_fused", key,
+                          layout_bytes(specs))
+        try:
+            _upload_together(pieces, device, into=ls.inputs)
+            args = views(ls.inputs, specs)
+            out = ls.run(lambda: decode_walk_fused(args, key, wires))
+            if meta is None:
+                pending = fetch_async(out)
+            else:  # the live rows' prefix of each part
+                n_sw, _ = _out_fetch_words(key.rows * p.L, meta.w, meta.q6)
+                s_live, q_live = _out_fetch_words(p.R * p.L, meta.w, meta.q6)
+                pending = fetch_async(out[:s_live], out[n_sw:n_sw + q_live])
+        except BaseException:
+            ls.release(ok=False)
+            raise
+        ls.release()
     return [pending], meta
 
 
@@ -1160,16 +1209,15 @@ def decode_stage_a(data: bytes, cfg: CodecConfig, device,
     of its output as soon as it is queued (phyngsc_tpu's _host_async).
     buckets: the driver's BucketCtx (phyngsc_tpu's decompress.py keeps
     one a run), picked here on the driver's thread in task order."""
-    t0 = time.perf_counter() if TIMING is not None else 0.0
-    p = _decode_parse(data, cfg, executor)
-    t0 = _tick("d.parse", t0)
-    st = _DStage()
-    st.R, st.L, st.lens_np, st.crc = p.R, p.L, p.lens_np, p.crc
-    st.titles_np, st.tlens_np = p.titles_np, p.tlens_np
-    with use_streams(streams):
-        st.blobs, st.out_meta = _decode_device(p, cfg, device, codec,
-                                               buckets)
-    _tick("d.device_dispatch", t0)
+    with timed_span("d.parse"):
+        p = _decode_parse(data, cfg, executor)
+    with timed_span("d.device_dispatch"):
+        st = _DStage()
+        st.R, st.L, st.lens_np, st.crc = p.R, p.L, p.lens_np, p.crc
+        st.titles_np, st.tlens_np = p.titles_np, p.tlens_np
+        with use_streams(streams):
+            st.blobs, st.out_meta = _decode_device(p, cfg, device, codec,
+                                                   buckets)
     return st
 
 
@@ -1216,23 +1264,30 @@ def _unpack_out(words: np.ndarray, meta: _OutMeta, R: int, L: int) -> tuple:
 
 
 def decode_stage_b(st: _DStage) -> bytes:
-    t0 = time.perf_counter() if TIMING is not None else 0.0
-    parts = [_fetch(b) for b in st.blobs]  # the decode fetch, one a shard
-    t0 = _tick("d.fetch", t0)
-    if st.out_meta is not None:
-        seq, qual = _unpack_out(parts[0].view(np.uint32), st.out_meta, st.R,
-                                st.L)
-    else:
-        both = parts[0] if len(parts) == 1 else np.concatenate(parts, axis=1)
-        seq, qual = both[0, : st.R], both[1, : st.R]
-    if st.tlens_np is None:        # title decode ran on a worker thread
-        st.titles_np, st.tlens_np = st.titles_np.result()
-    out = _reassemble(st.R, st.lens_np, st.titles_np, st.tlens_np, seq, qual)
-    _tick("d.reassemble", t0)
+    with timed_span("d.fetch", wait=True):
+        # the decode fetch, one a shard
+        parts = [_fetch(b) for b in st.blobs]
+    with timed_span("d.reassemble"):
+        with span("d.unpack"):
+            if st.out_meta is not None:
+                seq, qual = _unpack_out(parts[0].view(np.uint32),
+                                        st.out_meta, st.R, st.L)
+            else:
+                both = (parts[0] if len(parts) == 1
+                        else np.concatenate(parts, axis=1))
+                seq, qual = both[0, : st.R], both[1, : st.R]
+        if st.tlens_np is None:        # title decode ran on a worker thread
+            with span("d.title_wait", wait=True):
+                st.titles_np, st.tlens_np = st.titles_np.result()
+        with span("d.fastq"):
+            out = _reassemble(st.R, st.lens_np, st.titles_np, st.tlens_np,
+                              seq, qual)
     if st.crc is not None:
         import zlib
 
-        if zlib.crc32(out) != st.crc:
+        with span("d.crc"):
+            ok = zlib.crc32(out) == st.crc
+        if not ok:
             raise ValueError(
                 "sub-block checksum mismatch: decoded bytes differ from the "
                 "original input (corrupt container or codec defect)")

@@ -112,9 +112,10 @@ def test_trace_writes_a_profile(tmp_path):
         pass
 
 
-def test_log_prefixes_and_timed(caplog):
+def test_log_prefixes_and_timed(caplog, monkeypatch):
     """The reference's [D]/[I]/[!]/[E] prefixes on the port's logger, and
-    `timed` adding a scope's seconds to a sink."""
+    the span recorder adding a scope's seconds to a sink (`done`) and
+    recording it in its call."""
     with caplog.at_level("DEBUG", logger="phyngsc_tpu_torch"):
         tlog.debug("a %d", 1)
         tlog.info("b %s", "x")
@@ -124,7 +125,17 @@ def test_log_prefixes_and_timed(caplog):
             if r.name == "phyngsc_tpu_torch"] == ["[D] a 1", "[I] b x",
                                                   "[!] c", "[E] d"]
     sink = {}
-    for _ in range(2):
-        with tlog.timed("scope", sink):
-            pass
+
+    def done(label, seconds):
+        sink[label] = sink.get(label, 0.0) + seconds
+
+    monkeypatch.setenv("PHYNGSC_TIMING", "1")
+    with tlog.call("compress"):
+        for _ in range(2):
+            with tlog.span("scope", done=done):
+                pass
     assert set(sink) == {"scope"} and sink["scope"] >= 0
+    spans = tlog.recorded_calls()[-1].spans
+    assert [s.name for s in spans] == ["scope", "scope", "compress"]
+    assert sum(s.t1 - s.t0 for s in spans[:2]) * 1e-9 == \
+        pytest.approx(sink["scope"])

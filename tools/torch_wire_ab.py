@@ -16,8 +16,9 @@ CUDA graphs, each call's seconds and graphs.stats() of its compress and
 its decompress are kept: the first call's captures, the later calls'
 replays), then one under PHYNGSC_TIMING=1,
 then one compress and one decompress under torch.profiler (CPU and CUDA
-activities), read by this tree's utils/logging.py device_activity (loaded
-from its file, since the tree measured may predate it) from the Chrome
+activities), read by this tool's own tools/trace_activity.py
+device_activity (loaded from its file, since the tree measured may predate
+it) from the Chrome
 trace: the card's busy share over each call's wall (the union of its
 kernel, copy and memset intervals), the calling thread's time in CPU ops,
 and the seconds the calling thread spent in cudaStreamSynchronize /
@@ -54,10 +55,9 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def device_activity():
-    """utils/logging.py device_activity of this tool's own tree."""
+    """tools/trace_activity.py device_activity of this tool's own tree."""
     spec = importlib.util.spec_from_file_location(
-        "_ab_logging", os.path.join(HERE, "phyngsc_tpu_torch", "utils",
-                                    "logging.py"))
+        "_trace_activity", os.path.join(HERE, "tools", "trace_activity.py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod.device_activity
