@@ -5,7 +5,10 @@ analyze runs on K1 (ops/histogram.py); encode is the per-position code
 lookup on K4 (ops/lookup.py), then grouping and the scatter pack in plain
 torch; decode_walk (uniform lengths) runs on K2 and decode_walk_masked
 (variable lengths) on K3 (ops/bitpack.py), both over the word plane that
-K5 builds. Table building and the stream header are host code.
+K5 builds. Table building and the stream header are host code: stage B's
+table search (build_tables_adaptive) is one call into the host runtime
+(utils/native.py quality_tables), its numpy version the plain one that
+PHYNGSC_NO_NATIVE=1 selects.
 """
 
 from __future__ import annotations
@@ -27,9 +30,9 @@ MAX_TREES = 256
 
 
 # QualityTables, tree_group_ids, _table_cost_bits, _tables_bits,
-# lens_rows_for, build_tables_adaptive, build_tables, write_header and
-# read_header are copied from phyngsc_tpu/models/quality.py (host code in a
-# module that imports jax).
+# lens_rows_for, build_tables, write_header and read_header are copied from
+# phyngsc_tpu/models/quality.py (host code in a module that imports jax),
+# and _search_np from its build_tables_adaptive.
 @dataclasses.dataclass
 class QualityTables:
     lens: np.ndarray        # (T, 256) uint8 code lengths (0 = absent)
@@ -109,16 +112,36 @@ def lens_rows_for(tables: "QualityTables", T0: int) -> np.ndarray:
     return tables.lens[gid]
 
 
-def build_tables_adaptive(counts: np.ndarray, cfg: CodecConfig):
+def build_tables_adaptive(counts: np.ndarray, cfg: CodecConfig,
+                          stats: dict | None = None):
     """Returns (tables, group): trees merged while the exact total bits fall
     (v4 proportional grouping), then code lengths capped at 6 or 8 bits when
-    that costs < 0.4% extra output bits (see phyngsc_tpu/models/quality.py)."""
-    counts = np.asarray(counts)
-    tables = build_tables(counts, cfg)
-    T0 = counts.shape[0]
+    that costs < 0.4% extra output bits (see phyngsc_tpu/models/quality.py).
+    The host runtime searches in one call; stats, if given, gets "native"
+    (1 where it did, else 0) and "candidates" (the table sets built)."""
     from phyngsc_tpu_torch.container import footer as _footer
+    from phyngsc_tpu_torch.utils import native
 
-    if T0 > 1 and _footer.VERSION >= 4:
+    built = native.quality_tables(counts, cfg.max_code_len, _footer.VERSION)
+    if built is not None:
+        lens, codes, singletons, group, n = built
+        if stats is not None:
+            stats.update(native=1, candidates=n)
+        return QualityTables(lens=lens, codes=codes,
+                             singletons=singletons), group
+    tables, group, n = _search_np(np.asarray(counts), cfg, _footer.VERSION)
+    if stats is not None:
+        stats.update(native=0, candidates=n)
+    return tables, group
+
+
+def _search_np(counts: np.ndarray, cfg: CodecConfig, version: int):
+    """build_tables_adaptive's numpy version: (tables, group, table sets
+    built)."""
+    tables = build_tables(counts, cfg)
+    built = 1
+    T0 = counts.shape[0]
+    if T0 > 1 and version >= 4:
         c64 = counts.astype(np.int64)
         best_bits = int((c64 * tables.lens).sum()) + _tables_bits(tables)
         T2 = T0 // 2
@@ -127,6 +150,7 @@ def build_tables_adaptive(counts: np.ndarray, cfg: CodecConfig):
             cand_counts = np.zeros((T2, counts.shape[1]), np.int64)
             np.add.at(cand_counts, gid, c64)
             cand = build_tables(cand_counts, cfg)
+            built += 1
             bits = int((c64 * cand.lens[gid]).sum()) + _tables_bits(cand)
             if bits >= best_bits:
                 break
@@ -138,18 +162,20 @@ def build_tables_adaptive(counts: np.ndarray, cfg: CodecConfig):
     c64 = counts.astype(np.int64)
     base = int((c64 * tables.lens).sum())
     if not base:
-        return tables, k
+        return tables, k, built
     if (max_len > 6 and cfg.max_code_len > 6
             and int(np.count_nonzero(counts, axis=1).max()) <= 64):
         t6 = build_tables(counts, dataclasses.replace(cfg, max_code_len=6))
+        built += 1
         if int((c64 * t6.lens).sum()) <= base * 1.004:
-            return t6, lookup.group_for(6)
+            return t6, lookup.group_for(6), built
     if k >= 4 or cfg.max_code_len <= 8:
-        return tables, k
+        return tables, k, built
     t8 = build_tables(counts, dataclasses.replace(cfg, max_code_len=8))
+    built += 1
     if int((c64 * t8.lens).sum()) <= base * 1.004:
-        return t8, 4
-    return tables, k
+        return t8, 4, built
+    return tables, k, built
 
 
 def build_tables(counts: np.ndarray, cfg: CodecConfig) -> QualityTables:

@@ -6,7 +6,9 @@
 // phyngsc::parallel_for on the std::thread pool of host_threads.h, and each
 // reduction keeps one partial a chunk, combined after the join, so results
 // do not depend on the thread count. phyngsc_threads / phyngsc_set_threads
-// read and set that count.
+// read and set that count. phyngsc_quality_tables has no twin there: it is
+// the port's stage B quality table search (models/quality.py), on the
+// calling thread.
 //
 // The reference spends its host cycles in OpenMP byte scans over the read
 // buffer (record indexing, phyNGSC.cpp:254-331) and in Huffman tree builds
@@ -16,12 +18,14 @@
 //   phyngsc_index_records  — newline-structured record span scan (C3)
 //   phyngsc_gather         — padded (R, W) matrix gather for device batching
 //   phyngsc_huffman_lengths— batched length-limited Huffman (C8 host side)
+//   phyngsc_quality_tables — the quality stream's whole table search
 //
 // Build: phyngsc_tpu_torch/host_runtime.py (g++ -O3 -march=native -fPIC
 // -std=c++17 -pthread -shared) into build/host/. PHYNGSC_NO_NATIVE=1 makes
 // the callers take their numpy versions instead.
 
 #include <algorithm>
+#include <cmath>
 #include <cstdint>
 #include <cstring>
 #include <vector>
@@ -148,79 +152,116 @@ int32_t phyngsc_gather3(const uint8_t *buf, int64_t n,
 
 namespace {
 
+// One tree's package-merge lists, as huffman_one builds them for a cap of
+// L bits: the present symbols sorted, and lists 1 .. L - 1.
+struct MergeLists {
+  std::vector<int> present;     // symbols with a count, by (count, symbol)
+  std::vector<int16_t> leaves;  // (L - 1, 2n + 1): leaves among the first o
+  std::vector<int64_t> leaf_w, cur_w, mrg_w;  // scratch
+};
+
+// Package-merge (Larmore–Hirschberg coin collector): exact optimal
+// length-limited codes. Ordering mirrors ops/huffman.
+// _package_merge_lengths exactly — leaves sorted by (freq, symbol); on
+// weight ties leaves precede packages and earlier items precede later
+// (both inputs to each merge are pre-sorted, so the stable two-pointer
+// merge with leaf priority reproduces numpy's lexsort) — so native and
+// numpy builders emit identical tables.
+//
+// Each list keeps its weights and how many leaves its first items hold,
+// not each item's leaf counts: a merge keeps the leaves and the packages
+// each in order, so the first k items of list l + 1 are its first a
+// leaves and its first k - a packages, and those packages are the first
+// 2(k - a) items of list l.
+void merge_lists(const int64_t *hist, int32_t A, int32_t L, MergeLists *m) {
+  std::vector<int> &present = m->present;
+  present.clear();
+  bool packable = A <= 256;  // (freq, symbol) in one 64-bit key
+  for (int32_t s = 0; s < A; ++s) {
+    if (hist[s] > 0) {
+      present.push_back(s);
+      packable = packable && hist[s] < (int64_t(1) << 55);
+    }
+  }
+  const int n = (int)present.size();
+  if (n <= 1) return;
+  // sort symbols by (freq, symbol) — stable tiebreak like the host builder
+  if (packable) {
+    thread_local std::vector<uint64_t> keys;
+    keys.resize(n);
+    for (int i = 0; i < n; ++i)
+      keys[i] = (uint64_t)hist[present[i]] << 8 | (uint64_t)present[i];
+    std::sort(keys.begin(), keys.end());
+    for (int i = 0; i < n; ++i) present[i] = (int)(keys[i] & 255);
+  } else {
+    std::sort(present.begin(), present.end(), [&](int a, int b) {
+      return hist[a] != hist[b] ? hist[a] < hist[b] : a < b;
+    });
+  }
+  std::vector<int64_t> &leaf_w = m->leaf_w, &cur_w = m->cur_w,
+                       &mrg_w = m->mrg_w;
+  leaf_w.resize(n);
+  for (int i = 0; i < n; ++i) leaf_w[i] = hist[present[i]];
+  cur_w.assign(leaf_w.begin(), leaf_w.end());
+  const size_t stride = 2 * (size_t)n + 1;
+  m->leaves.resize((size_t)std::max(L - 1, 0) * stride);
+  for (int level = 0; level < L - 1; ++level) {
+    const int np_ = (int)(cur_w.size() / 2);
+    const int total = n + np_;
+    mrg_w.resize(total);
+    int16_t *seen = &m->leaves[(size_t)level * stride];
+    int li = 0, pi = 0;
+    seen[0] = 0;
+    for (int o = 0; o < total; ++o) {
+      const int64_t pw = pi < np_ ? cur_w[2 * pi] + cur_w[2 * pi + 1] : 0;
+      if (li < n && (pi >= np_ || leaf_w[li] <= pw)) {
+        mrg_w[o] = leaf_w[li++];
+      } else {
+        mrg_w[o] = pw;
+        ++pi;
+      }
+      seen[o + 1] = (int16_t)li;
+    }
+    cur_w.swap(mrg_w);
+  }
+}
+
+// The code lengths at the cap of max_len = L bits the lists were built for
+// (n <= 2^max_len): leaf i's length is the number of lists whose items
+// taken hold it, walking back from the 2(n - 1) first of list max_len - 1.
+void lengths_of(const MergeLists &m, int32_t A, int32_t max_len,
+                uint8_t *lens, int32_t *singleton) {
+  std::fill(lens, lens + A, 0);
+  *singleton = -1;
+  const int n = (int)m.present.size();
+  if (n == 0) return;
+  if (n == 1) {  // zero-bit singleton code
+    *singleton = m.present[0];
+    return;
+  }
+  thread_local std::vector<int> lists;
+  lists.assign(n + 1, 0);  // lists[a]: the lists taking leaves < a
+  const size_t stride = 2 * (size_t)n + 1;
+  int k = 2 * (n - 1);
+  for (int level = max_len - 2; level >= 0; --level) {
+    const int a = m.leaves[(size_t)level * stride + k];
+    ++lists[a];
+    k = 2 * (k - a);
+  }
+  ++lists[k];  // list 0 is the leaves alone
+  int acc = 0;
+  for (int i = n - 1; i >= 0; --i) {
+    acc += lists[i + 1];
+    lens[m.present[i]] = (uint8_t)acc;
+  }
+}
+
 // Single-tree length-limited Huffman (sort + two-queue merge + Kraft repair).
 void huffman_one(const int64_t *hist, int32_t A, int32_t max_len,
                  uint8_t *lens, int32_t *singleton) {
-  std::vector<int> present;
-  present.reserve(A);
-  for (int32_t s = 0; s < A; ++s) {
-    lens[s] = 0;
-    if (hist[s] > 0) present.push_back(s);
-  }
-  *singleton = -1;
-  const int n = (int)present.size();
-  if (n == 0) return;
-  if (n == 1) {  // zero-bit singleton code
-    *singleton = present[0];
-    return;
-  }
-  // sort symbols by (freq, symbol) — stable tiebreak like the host builder
-  std::sort(present.begin(), present.end(), [&](int a, int b) {
-    return hist[a] != hist[b] ? hist[a] < hist[b] : a < b;
-  });
-  // Package-merge (Larmore–Hirschberg coin collector): exact optimal
-  // length-limited codes. Ordering mirrors ops/huffman.
-  // _package_merge_lengths exactly — leaves sorted by (freq, symbol); on
-  // weight ties leaves precede packages and earlier items precede later
-  // (both inputs to each merge are pre-sorted, so the stable two-pointer
-  // merge with leaf priority reproduces numpy's lexsort) — so native and
-  // numpy builders emit identical tables.
-  std::vector<int64_t> leaf_w(n);
-  for (int i = 0; i < n; ++i) leaf_w[i] = hist[present[i]];
-  std::vector<int64_t> cur_w(leaf_w);
-  std::vector<uint16_t> cur_c((size_t)n * n, 0);  // item-major leaf counts
-  for (int i = 0; i < n; ++i) cur_c[(size_t)i * n + i] = 1;
-  std::vector<int64_t> pkg_w, mrg_w;
-  std::vector<uint16_t> pkg_c, mrg_c;
-  for (int level = 0; level < max_len - 1; ++level) {
-    const int m = (int)(cur_w.size() / 2) * 2;
-    const int np_ = m / 2;
-    pkg_w.assign(np_, 0);
-    pkg_c.assign((size_t)np_ * n, 0);
-    for (int j = 0; j < np_; ++j) {
-      pkg_w[j] = cur_w[2 * j] + cur_w[2 * j + 1];
-      const uint16_t *a = &cur_c[(size_t)(2 * j) * n];
-      const uint16_t *b = &cur_c[(size_t)(2 * j + 1) * n];
-      uint16_t *dst = &pkg_c[(size_t)j * n];
-      for (int s = 0; s < n; ++s) dst[s] = (uint16_t)(a[s] + b[s]);
-    }
-    const int total = n + np_;
-    mrg_w.assign(total, 0);
-    mrg_c.assign((size_t)total * n, 0);
-    int li = 0, pi = 0;
-    for (int o = 0; o < total; ++o) {
-      const bool use_leaf =
-          li < n && (pi >= np_ || leaf_w[li] <= pkg_w[pi]);
-      if (use_leaf) {
-        mrg_w[o] = leaf_w[li];
-        mrg_c[(size_t)o * n + li] = 1;
-        ++li;
-      } else {
-        mrg_w[o] = pkg_w[pi];
-        memcpy(&mrg_c[(size_t)o * n], &pkg_c[(size_t)pi * n],
-               (size_t)n * sizeof(uint16_t));
-        ++pi;
-      }
-    }
-    cur_w.swap(mrg_w);
-    cur_c.swap(mrg_c);
-  }
-  const int take_n = 2 * (n - 1);
-  for (int i = 0; i < n; ++i) {
-    int32_t acc = 0;
-    for (int o = 0; o < take_n; ++o) acc += cur_c[(size_t)o * n + i];
-    lens[present[i]] = (uint8_t)acc;
-  }
+  thread_local MergeLists m;  // scratch kept by each thread
+  merge_lists(hist, A, max_len, &m);
+  lengths_of(m, A, max_len, lens, singleton);
 }
 
 }  // namespace
@@ -233,6 +274,197 @@ void phyngsc_huffman_lengths(const int64_t *hist, int32_t K, int32_t A,
       huffman_one(hist + k * A, A, max_len, lens + k * A, &singletons[k]);
     }
   });
+}
+
+namespace {
+
+// group_for of ops/lookup.py: the largest k with k * max_len <= 32, in [2, 8].
+int32_t group_for(int32_t max_len) {
+  return std::max(2, std::min(32 / std::max(max_len, 1), 8));
+}
+
+// Python's `x <= d` for an int x and a finite double d, exactly (no
+// rounding of x to a double).
+bool int_le_double(int64_t x, double d) {
+  if (d >= 9223372036854775808.0) return true;
+  if (d < -9223372036854775808.0) return false;
+  return x <= (int64_t)std::floor(d);
+}
+
+// One table set of models/quality.py's search: the rows of `counts` built
+// on the calling thread.
+struct TableSet {
+  int32_t T = 0;
+  std::vector<uint8_t> lens;       // (T, A)
+  std::vector<int32_t> singletons; // (T,)
+};
+
+// The widest of T rows' symbol counts.
+int64_t widest_row(const int64_t *counts, int32_t T, int32_t A) {
+  int64_t widest = 0;
+  for (int64_t i = 0; i < (int64_t)T * A; i += A) {
+    int64_t n = 0;
+    for (int32_t s = 0; s < A; ++s) n += counts[i + s] != 0;
+    widest = std::max(widest, n);
+  }
+  return widest;
+}
+
+// quality.build_tables' lengths and singletons of T rows of A counts;
+// false, with the widest row's symbol count in *n_max, where a row's
+// alphabet cannot fit max_len bits (native.huffman_lengths' ValueError).
+bool build_set(const int64_t *counts, int32_t T, int32_t A, int32_t max_len,
+               TableSet *out, int64_t *n_max) {
+  const int64_t widest = widest_row(counts, T, A);
+  if (widest > (int64_t(1) << max_len)) {
+    *n_max = widest;
+    return false;
+  }
+  out->T = T;
+  out->lens.resize((size_t)T * A);
+  out->singletons.resize(T);
+  for (int32_t t = 0; t < T; ++t)
+    huffman_one(counts + (size_t)t * A, A, max_len,
+                &out->lens[(size_t)t * A], &out->singletons[t]);
+  return true;
+}
+
+// quality._table_cost_bits summed over the set's trees.
+int64_t tables_bits(const TableSet &s, int32_t A) {
+  int64_t bits = 0;
+  for (int32_t t = 0; t < s.T; ++t) {
+    if (s.singletons[t] >= 0) {
+      bits += 32;
+      continue;
+    }
+    int64_t n = 0;
+    for (int32_t a = 0; a < A; ++a) n += s.lens[(size_t)t * A + a] != 0;
+    bits += n == 0 ? 16 : n == 1 ? 32 : 16 + 8 * ((A + 7) / 8) + 4 * n;
+  }
+  return bits;
+}
+
+// sum over the T0 rows of counts x the lengths of row gid(t) of the set,
+// gid(t) = t * T // T0 (the identity where T == T0).
+int64_t payload_bits(const int64_t *counts, int32_t T0, int32_t A,
+                     const TableSet &s) {
+  int64_t bits = 0;
+  for (int32_t t = 0; t < T0; ++t) {
+    const int64_t g = (int64_t)t * s.T / T0;
+    const int64_t *c = counts + (size_t)t * A;
+    const uint8_t *l = &s.lens[(size_t)g * A];
+    for (int32_t a = 0; a < A; ++a) bits += c[a] * l[a];
+  }
+  return bits;
+}
+
+}  // namespace
+
+// Stage B's quality table search (models/quality.py build_tables_adaptive,
+// whose numpy version PHYNGSC_NO_NATIVE=1 selects), on the calling thread
+// alone: it is at most a few hundred tree builds of at most 256 symbols,
+// which a split over the pool would only make wait on workers that the
+// pool's other tasks keep busy. counts: (T0, A) histogram rows; version: the
+// footer version written (v4+ may merge rows onto T < T0 trees by
+// t * T // T0). Writes the chosen set's (T, A) lengths and canonical
+// codes and its (T,) singletons into the first T rows of the (T0, ...)
+// outputs, and info = {T, group, table sets built}. Returns 0, or -1 with
+// info[3] = the widest row's symbol count where an alphabet cannot fit
+// max_code_len bits.
+int32_t phyngsc_quality_tables(const int64_t *counts, int32_t T0, int32_t A,
+                               int32_t max_code_len, int32_t version,
+                               uint8_t *lens, uint32_t *codes,
+                               int32_t *singletons, int64_t *info) {
+  int64_t built = 0;
+  TableSet tables, cand;
+  if (!build_set(counts, T0, A, max_code_len, &tables, &info[3])) return -1;
+  ++built;
+  // the counts the chosen set was built from
+  std::vector<int64_t> cur(counts, counts + (size_t)T0 * A), merged;
+  if (T0 > 1 && version >= 4) {
+    // every candidate groups the original rows with the direct map that
+    // the encode kernel and every v4 reader apply
+    int64_t best = payload_bits(counts, T0, A, tables) + tables_bits(tables, A);
+    for (int32_t T2 = T0 / 2; T2 >= 1; T2 /= 2) {
+      merged.assign((size_t)T2 * A, 0);
+      for (int32_t t = 0; t < T0; ++t) {
+        const int64_t g = (int64_t)t * T2 / T0;
+        for (int32_t a = 0; a < A; ++a)
+          merged[(size_t)g * A + a] += counts[(size_t)t * A + a];
+      }
+      if (!build_set(merged.data(), T2, A, max_code_len, &cand, &info[3]))
+        return -1;
+      ++built;
+      const int64_t bits = payload_bits(counts, T0, A, cand) +
+                           tables_bits(cand, A);
+      if (bits >= best) break;
+      best = bits;
+      cur.swap(merged);
+      std::swap(tables, cand);
+    }
+  }
+  const int32_t T = tables.T;
+  int32_t max_len = 1;
+  if ((int64_t)T * A > 0)
+    max_len = *std::max_element(tables.lens.begin(), tables.lens.end());
+  int32_t group = group_for(max_len);
+  const int64_t base = payload_bits(cur.data(), T, A, tables);
+  if (base) {
+    // a capped set is the same rows built at fewer bits; a cap that a
+    // row's alphabet cannot fit raises
+    const double limit = (double)base * 1.004;
+    bool capped = false;
+    if (max_len > 6 && max_code_len > 6 &&
+        widest_row(cur.data(), T, A) <= 64) {
+      build_set(cur.data(), T, A, 6, &cand, &info[3]);
+      ++built;
+      if (int_le_double(payload_bits(cur.data(), T, A, cand), limit)) {
+        std::swap(tables, cand);
+        group = group_for(6);
+        capped = true;
+      }
+    }
+    if (!capped && group < 4 && max_code_len > 8) {
+      if (!build_set(cur.data(), T, A, 8, &cand, &info[3])) return -1;
+      ++built;
+      if (int_le_double(payload_bits(cur.data(), T, A, cand), limit)) {
+        std::swap(tables, cand);
+        group = 4;
+      }
+    }
+  }
+  // canonical codes (ops/huffman.py canonical_codes): in (length, symbol)
+  // order each code left-aligns at the Kraft sum of its predecessors,
+  // code = (sum 2^(B - len_j)) >> (B - len), B the set's longest length
+  const int32_t B = (int64_t)T * A > 0
+      ? *std::max_element(tables.lens.begin(), tables.lens.end()) : 0;
+  for (int32_t t = 0; t < T; ++t) {
+    const uint8_t *l = &tables.lens[(size_t)t * A];
+    int64_t start[33] = {0};  // each length's first Kraft offset
+    for (int32_t a = 0; a < A; ++a)
+      if (l[a]) start[l[a]] += int64_t(1) << (B - l[a]);
+    int64_t acc = 0;
+    for (int32_t n = 1; n <= B; ++n) {
+      const int64_t w = start[n];
+      start[n] = acc;
+      acc += w;
+    }
+    uint32_t *c = codes + (size_t)t * A;
+    for (int32_t a = 0; a < A; ++a) {
+      if (!l[a]) {
+        c[a] = 0;
+        continue;
+      }
+      c[a] = (uint32_t)(start[l[a]] >> (B - l[a]));
+      start[l[a]] += int64_t(1) << (B - l[a]);
+    }
+  }
+  std::copy(tables.lens.begin(), tables.lens.end(), lens);
+  std::copy(tables.singletons.begin(), tables.singletons.end(), singletons);
+  info[0] = T;
+  info[1] = group;
+  info[2] = built;
+  return 0;
 }
 
 // Substream-parallel LUT decode walk (twin of ops/bitpack.unpack_substreams_np

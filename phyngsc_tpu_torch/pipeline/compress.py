@@ -12,7 +12,8 @@ collects a CompressStats per writer. With cfg.data_shards > 1 every
 sub-block's rows split over that many devices (parallel/mesh.py
 ShardedSubblockCodec); the container is the JAX package's at the same
 shard count. Under PHYNGSC_TIMING the driver sums the stage split
-(subblock.TIMING) and logs it in one line, and each call records its
+(subblock.TIMING) and the event counts (subblock.COUNTS) and logs them in
+one line, and each call records its
 spans (subblock.recorded_calls): the calling thread's drv.* steps and
 stage_b, the pool's stage_a, stage_c and title tasks. The host partitioning,
 indexing, framing and footer are the port's copies of phyngsc_tpu's modules
@@ -126,6 +127,7 @@ def encode_subblocks_pipelined(buf: np.ndarray, regions, cfg: CodecConfig,
         t_lock = threading.Lock()
         timing = {} if os.environ.get("PHYNGSC_TIMING") else None
         sbmod.TIMING = timing
+        sbmod.COUNTS = counts = {} if timing is not None else None
         t_start = time.perf_counter()
         depth = max(cfg.pipeline_depth, 1)
         # each sub-block's task streams, handed out in task order
@@ -191,9 +193,10 @@ def encode_subblocks_pipelined(buf: np.ndarray, regions, cfg: CodecConfig,
         with span("drv.close"):
             executor.shutdown()
             if timing is not None:
-                info("pipeline timing: %s total=%.2fs tasks=%d",
+                info("pipeline timing: %s total=%.2fs tasks=%d %s",
                      sbmod.timing_line(timing),
-                     time.perf_counter() - t_start, n_tasks)
+                     time.perf_counter() - t_start, n_tasks,
+                     " ".join(f"{k}={v}" for k, v in sorted(counts.items())))
     return n_tasks
 
 

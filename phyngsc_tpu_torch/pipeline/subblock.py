@@ -98,6 +98,20 @@ def _add(key: str, value: float) -> None:
             timing[key] = timing.get(key, 0.0) + value
 
 
+#: event counts beside the stage sink, set with it by the compress driver
+#: (else None): q_tables.native (sub-blocks whose quality table search ran
+#: in the host runtime), q_tables.candidates (the table sets it built).
+#: They stay out of _add, whose every label is seconds.
+COUNTS = None
+
+
+def _count(key: str, n: int) -> None:
+    counts = COUNTS
+    if counts is not None:
+        with _TIMING_LOCK:
+            counts[key] = counts.get(key, 0) + n
+
+
 def _tick(label: str, t0: float) -> float:
     """Add the seconds since t0 to `label`; returns the new start. Without
     a sink it reads no clock."""
@@ -550,8 +564,11 @@ def stage_b(a: _StageA, cfg: CodecConfig, codec=None,
         q_counts = counts[: a.n_q_counts].reshape(-1, quality.ALPHABET)
         d_counts = counts[a.n_q_counts :]
         with span("b.tables.quality"):
-            st.q_tables, q_group = quality.build_tables_adaptive(q_counts,
-                                                                 cfg)
+            q_search = {}
+            st.q_tables, q_group = quality.build_tables_adaptive(
+                q_counts, cfg, q_search)
+        _count("q_tables.native", q_search["native"])
+        _count("q_tables.candidates", q_search["candidates"])
         with span("b.tables.dna"):
             st.d_plan = dna.plan(d_counts, cfg)
         huffman_dna = st.d_plan.mode == dna.MODE_HUFFMAN

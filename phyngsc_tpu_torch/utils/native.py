@@ -71,6 +71,8 @@ def _signatures() -> dict:
                    vp, vp]),
         "phyngsc_unpack_substreams": (
             None, [vp, i64, i64p, i64, i32p, i32, i32p, vp, i64, i32p]),
+        "phyngsc_quality_tables": (
+            i32, [i64p, i32, i32, i32, i32, vp, vp, i32p, i64p]),
     }
 
 
@@ -463,3 +465,29 @@ def huffman_lengths(hist: np.ndarray, max_len: int):
         singles.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
     )
     return lens, singles
+
+
+def quality_tables(counts: np.ndarray, max_code_len: int, version: int):
+    """Stage B's quality table search in one call (models/quality.py
+    build_tables_adaptive): (T0, A) counts -> (lens (T, A) uint8, codes
+    (T, A) uint32, singletons (T,) int32, group, table sets built), or
+    None. Raises huffman_lengths' ValueError where an alphabet cannot fit
+    max_code_len bits."""
+    lib = _load()
+    if lib is None:
+        return None
+    counts = np.ascontiguousarray(counts, dtype=np.int64)
+    T0, A = counts.shape
+    lens = np.empty((T0, A), np.uint8)
+    codes = np.empty((T0, A), np.uint32)
+    singles = np.empty(T0, np.int32)
+    info = np.zeros(4, np.int64)
+    if lib.phyngsc_quality_tables(
+            _i64p(counts), T0, A, max_code_len, version, lens.ctypes.data,
+            codes.ctypes.data,
+            singles.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+            _i64p(info)) < 0:
+        raise ValueError(f"alphabet of {int(info[3])} symbols cannot fit "
+                         f"{max_code_len}-bit codes")
+    T = int(info[0])
+    return lens[:T], codes[:T], singles[:T], int(info[1]), int(info[2])

@@ -22,7 +22,10 @@ with their threads, and prints its result line, then one JSON line of:
   trace range around each idle stretch's middle;
 - stages: per kind and span name, over the window's recorded calls: the
   count, wall, CPU, off-CPU (wall less CPU) and wait seconds, per GB of
-  FASTQ and in all.
+  FASTQ and in all;
+- counters: per kind, over the same calls: the sub-blocks (stage_b
+  spans) and the sums of the program's event counts (subblock._count:
+  q_tables.native, q_tables.candidates).
 
 --out also writes that JSON to FILE. Needs a CUDA card for the device
 numbers; on the CPU (--device cpu, --tiny) it runs at a small size.
@@ -132,10 +135,11 @@ def trace_report(tr: dict, ranges: list) -> dict:
             "trace_gaps": {k: _top(v) for k, v in gaps.items()}}
 
 
-def recorder_report(run) -> dict:
+def recorder_report(run, counted: list) -> dict:
+    """counted: the program's event counts as (key, n, perf_counter)."""
     from portbench.metrics.calling import matched
 
-    cover, stages, gaps = {}, {}, {}
+    cover, stages, gaps, counters = {}, {}, {}, {}
     for kind in ("compress", "decompress"):
         pairs = matched(run, kind)
         if not pairs:
@@ -159,6 +163,11 @@ def recorder_report(run) -> dict:
                 p[1] += (s.t1 - s.t0) * 1e-9
                 p[2] += s.cpu * 1e-9
                 p[3] += (s.t1 - s.t0 - s.cpu) * 1e-9
+        mine = counters[kind] = {"sub_blocks": sum(
+            s.name == "stage_b" for _, rec, _ in pairs for s in rec.spans)}
+        for key, n, t in counted:
+            if any(c.t0 <= t <= c.t1 for c, _, _ in pairs):
+                mine[key] = mine.get(key, 0) + n
         cover[kind] = {"calls": len(pairs), "all": covered / wall,
                        "min": min(shares),
                        "median": statistics.median(shares)}
@@ -168,7 +177,8 @@ def recorder_report(run) -> dict:
                 "wait": v[4], "wall_s_per_GB": v[1] / gb,
                 "cpu_s_per_GB": v[2] / gb, "offcpu_s_per_GB": v[3] / gb}
             for k, v in sorted(per.items(), key=lambda kv: -kv[1][1])}
-    return {"coverage": cover, "recorder_gaps": gaps, "stages": stages}
+    return {"coverage": cover, "recorder_gaps": gaps, "stages": stages,
+            "counters": counters}
 
 
 def main(argv=None) -> int:
@@ -199,16 +209,26 @@ def main(argv=None) -> int:
         runs.append(r)
         return r
 
+    from phyngsc_tpu_torch.pipeline import subblock
+
+    counted, count = [], subblock._count
+
+    def count_keeping_times(key, n):
+        counted.append((key, n, time.perf_counter()))
+        count(key, n)
+
     _trace.load, harness.Run = load_keeping_threads, keep_run
+    subblock._count = count_keeping_times
     try:
         out = harness.run_cell(a.workload, a.seed, a.seconds, True,
                                t_start=T_START, device=a.device,
                                overrides=TINY if a.tiny else None)
     finally:
         _trace.load, harness.Run = load, run_cls
+        subblock._count = count
     print(json.dumps(out), flush=True)
     report = {"workload": a.workload, "seed": a.seed,
-              **recorder_report(runs[0]),
+              **recorder_report(runs[0], counted),
               **trace_report(seen.get("trace"), seen.get("ranges", []))}
     print(json.dumps(report), flush=True)
     if a.out:
