@@ -105,6 +105,11 @@ class Staging:
             v[...] = a
         return st
 
+    def into(self, buf) -> "Staging":
+        """This Staging, to send into `buf` (a uint8 device buffer)."""
+        self._into = buf
+        return self
+
     def send(self) -> list:
         """The pieces on the device: views of one uint8 tensor made by one
         copy, non-blocking on the current stream for a CUDA device (a

@@ -6,38 +6,56 @@ sub-block whose static shapes match.
 A stage's step (subblock.analyze_all, encode_all, decode_walk_fused) is a
 function of tensors of static shapes plus a static key: the JAX package's
 static arguments and bucketed sizes. The Runner maps (device, stage, key)
-to instances, each a torch.cuda.CUDAGraph with its own static input buffer
-and the static outputs of its capture:
+to instances, each a torch.cuda.CUDAGraph with its own static input
+buffer and the static outputs of its capture:
 
 - Capture rule. The first sight of a key on a device runs the step eagerly
   on the task's stream (it warms the kernels' launch caches and the
-  allocator, and makes the constant tables); every later sight replays an
-  instance. A stage whose outputs a child reads (stage A, lease(...,
-  paired=True)) warms eagerly at its first sight and then captures and
-  replays, so that every stage B finds static outputs to be captured on,
-  whichever pool thread leased a key first. If every instance of
-  the key is leased, a new one is captured (on a stream of the capturing
-  thread's own, capture_error_mode "thread_local", so that the other
-  threads' event waits and pinned allocations stay legal) and replayed for
-  that same sub-block. A failed capture raises; nothing falls back to the
-  eager step.
-- Leases. An instance is leased to one task from its upload into the static
-  input until its outputs' fetches are queued (Lease.release: for encode,
-  from stage A's upload to stage B's fetch). The release records an event
-  on the holder's stream, and the next holder's stream waits on it (no host
-  wait), so an instance passes between task streams and concurrent driver
-  calls never share one's buffers at once.
-- Pairs. A stage-B instance reads a stage-A instance's static outputs, so
-  it is the A instance's child (Lease.child): captured into the same
-  memory pool, leased and evicted with it.
+  allocator, and makes the constant tables), then captures an instance
+  and replays it; every later sight replays an instance. If every
+  instance of the key is leased, a new one is captured, but for a shared
+  key (below), which has one. A capture runs on a stream of the
+  capturing thread's own,
+  capture_error_mode "thread_local", so that the other threads' event
+  waits and pinned allocations stay legal. A failed capture raises;
+  nothing falls back to the eager step.
+- Leases. An instance is leased to one task from its upload into the
+  static input until its outputs are copied out or their fetches queued
+  (Lease.release; a lease holds no other lease and waits for no other
+  task, so a task that waits for a shared key's instance waits for a
+  step's dispatch). The release records an event on the holder's stream,
+  and the next holder's stream waits on it (no host wait), so an
+  instance passes between task streams and concurrent driver calls never
+  share its buffers at once.
+- Pools. An instance has a memory pool of its own, but the instances of
+  a stage's shared keys (lease(..., shared=True): the drivers share the
+  keys of long variable-length sub-blocks, whose steps take gigabytes of
+  int64 planes) share one: a later capture reuses what an earlier one
+  freed (the step's intermediates), so the stage holds about one step's
+  scratch, not one an instance, and a shared key has one instance (a
+  task waits for it). Each keeps its static input (outside the pool) and
+  outputs, but a replay of another instance of the pool may write over
+  them. So a pool is used in turns: a lease takes its turn at its replay
+  and gives it back at its release, once its outputs are copied out or
+  their fetches queued, and the next replay's stream waits for that (an
+  event; no host wait; the turn is held for a step's dispatch).
 - Memory. Instances live for the process, as JAX's executables do, within
-  BUDGET_BYTES of graph pool and input memory: a capture past it evicts
-  the least recently released instances (after their last replay's event),
-  counted in stats()["evictions"].
+  the runner's budget of pool and static input memory, counted as the
+  allocator holds it after each capture (on a card: half of the card's
+  free memory when the runner is made). A release past the budget evicts
+  the least recently released instances: once an instance's last
+  replay's event is done its graph and tensors go, and a pool that no
+  instance uses any more is given back to the card (the span g.evict,
+  tagged like g.capture), as is a broken instance's. stats() counts the
+  evictions, the bytes given back (freed_bytes) and the most the
+  instances held (peak_bytes). The allocator returns no memory to the
+  card while a capture is underway, so a capture first gives back what
+  the cache holds free, and captures and give-backs take turns.
 - Launch counts. A capture launches nothing: kernels.recording notes the
   wrappers' launches and each replay adds them to kernels.LAUNCHES.
 - Spans. A capture is the span g.capture (utils/logging.py span), tagged
-  with its stage and key, so that a capture inside a measured window shows.
+  with its stage and key, so that a capture inside a measured window shows;
+  an eviction is g.evict.
 
 On the CPU the drivers call the steps directly (runner_for gives None, and
 lease() a plain buffer), unless a Runner is installed as CPU_RUNNER (the
@@ -58,8 +76,11 @@ import torch
 from phyngsc_tpu_torch import kernels
 from phyngsc_tpu_torch.utils.logging import span
 
-#: graph pool and static input bytes the CUDA runner keeps at most
-BUDGET_BYTES = 16 << 30
+#: the share of the card's free memory, when the CUDA runner is made, that
+#: its instances may hold: the rest is the eager steps', the fetches' and
+#: the caching allocator's (one 65,532 bp sub-block's eager step holds
+#: gigabytes)
+BUDGET_SHARE = 0.5
 
 #: a Runner used for CPU devices, or None: the steps run directly there
 CPU_RUNNER = None
@@ -91,6 +112,11 @@ class CudaBackend:
         self._idle = {}     # device -> [capture stream not in use]
         self._handles = set()
 
+    def budget(self) -> int:
+        """BUDGET_SHARE of the current card's free memory."""
+        free, _ = torch.cuda.mem_get_info()
+        return int(free * BUDGET_SHARE)
+
     def _take_stream(self, device) -> torch.cuda.Stream:
         with self._lock:
             idle = self._idle.setdefault(device, [])
@@ -107,6 +133,9 @@ class CudaBackend:
         """(graph, fn()'s outputs as captured, the launches it recorded)."""
         graph = torch.cuda.CUDAGraph()
         stream = self._take_stream(device)
+        # the allocator frees nothing while a capture is underway: what
+        # the cache holds free goes back to the card first
+        torch.cuda.empty_cache()
         try:
             with torch.cuda.device(device), torch.cuda.stream(stream), \
                     kernels.recording() as names:
@@ -130,11 +159,27 @@ class CudaBackend:
     def pool(self, graph):
         return graph.pool()
 
-    def pool_bytes(self, device, pool) -> int:
-        """Bytes the caching allocator holds in `pool` on `device`."""
-        return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
-                   if seg["device"] == device.index
-                   and tuple(seg["segment_pool_id"]) == tuple(pool))
+    def held_bytes(self, device, pools, tensors=()) -> list:
+        """The bytes the caching allocator holds on `device` in each of
+        `pools`, and last in the blocks of `tensors`."""
+        want = {tuple(p): i for i, p in enumerate(pools)}
+        ptrs = {t.data_ptr() for t in tensors}
+        out = [0] * (len(pools) + 1)
+        for seg in torch.cuda.memory_snapshot():
+            if seg["device"] != device.index:
+                continue
+            at = want.get(tuple(seg["segment_pool_id"]))
+            if at is not None:
+                out[at] += seg["total_size"]
+            if ptrs:
+                out[-1] += sum(b["size"] for b in seg["blocks"]
+                               if b["address"] in ptrs)
+        return out
+
+    def give_back(self) -> None:
+        """The cached blocks no tensor holds, freed pools' included, back
+        to the card."""
+        torch.cuda.empty_cache()
 
     def record(self, device):
         event = torch.cuda.Event()
@@ -149,63 +194,74 @@ class CudaBackend:
 
 
 class _Instance:
-    __slots__ = ("dkey", "inputs", "graph", "outputs", "launches", "children",
-                 "parent", "event", "nbytes", "broken")
+    __slots__ = ("dkey", "inputs", "graph", "outputs", "launches", "event",
+                 "nbytes", "broken", "leased", "pool", "shared")
 
-    def __init__(self, dkey, parent=None):
-        self.dkey, self.parent = dkey, parent
+    def __init__(self, dkey, shared):
+        self.dkey, self.shared = dkey, shared
         self.inputs = self.graph = self.outputs = self.event = None
-        self.launches, self.children = [], {}
-        self.nbytes, self.broken = 0, False
+        self.launches, self.pool = [], None
+        self.nbytes, self.broken, self.leased = 0, False, True
+
+
+class _Pool:
+    """A stage's memory pool on a device: its handle, its instances, the
+    bytes the allocator holds in it, and its last replay's event (taken
+    and replaced under its lock)."""
+
+    __slots__ = ("handle", "users", "nbytes", "event", "lock")
+
+    def __init__(self, handle):
+        self.handle, self.users, self.nbytes = handle, 0, 0
+        self.event, self.lock = None, threading.Lock()
 
 
 class Lease:
     """One task's hold on a stage's static input buffer (`inputs`, uint8)
-    and, but for an eager first sight or a direct run, on an instance.
-    run(fn) computes the stage: fn reads the inputs and returns its
-    outputs."""
+    and, but for a direct run, on its instance. run(fn) computes the stage:
+    fn reads the inputs and returns its outputs, which are the instance's
+    (static: a later replay overwrites them) where `static`."""
 
-    __slots__ = ("_runner", "_dkey", "_inst", "inputs", "eager", "_done",
-                 "_children", "_warmup")
+    __slots__ = ("_runner", "_dkey", "_inst", "inputs", "_done", "_warmup",
+                 "_turn")
 
-    def __init__(self, runner, dkey, inst, inputs, eager, warmup=False):
+    def __init__(self, runner, dkey, inst, inputs, warmup=False):
         self._runner, self._dkey, self._inst = runner, dkey, inst
-        self.inputs, self.eager, self._warmup = inputs, eager, warmup
-        self._done, self._children = False, []
+        self.inputs, self._warmup = inputs, warmup
+        self._done, self._turn = False, None
+
+    @property
+    def static(self) -> bool:
+        return self._runner is not None
 
     def run(self, fn):
         if self._runner is None:
             return fn()
         return self._runner._run(self, fn)
 
-    def child(self, stage: str, key, nbytes: int) -> "Lease":
-        """The lease of a stage that reads this one's outputs (stage B of
-        stage A's instance), released with this one."""
-        if self._runner is None:
-            return lease(self._dkey[0], stage, key, nbytes)
-        return self._runner._child(self, stage, key, nbytes)
-
     def release(self, ok: bool = True) -> None:
-        """Call once the fetches of the outputs are queued (ok), or after a
-        failure (not ok: the instance is dropped)."""
+        """Call once the outputs are copied out or their fetches queued
+        (ok), or after a failure (not ok: the instance is dropped)."""
         if self._runner is not None and not self._done:
             self._done = True
             self._runner._release(self, ok)
 
 
 class Runner:
-    """Instances of the stages' graphs by (device, stage, key); see the
+    """The instances of the stages' graphs by (device, stage, key); see the
     module's docstring. backend: CudaBackend, or a stand-in with the same
-    methods."""
+    methods. budget: the bytes the instances may hold; default the
+    backend's budget()."""
 
     def __init__(self, backend=None, budget: int | None = None):
         self.backend = backend if backend is not None else CudaBackend()
-        self.budget = BUDGET_BYTES if budget is None else budget
-        self._lock = threading.Lock()
+        self.budget = self.backend.budget() if budget is None else budget
+        self._lock = threading.Condition()
+        self._turns = threading.Lock()  # captures and give-backs
         self._seen = {}    # dkey -> threading.Event set once its eager run ends
-        self._free = {}                        # dkey -> [unleased instance]
-        self._lru = collections.OrderedDict()  # unleased roots, oldest first
-        self._leased = set()
+        self._inst = {}                        # dkey -> [its instances]
+        self._pools = {}                       # (device, stage) -> _Pool
+        self._lru = collections.OrderedDict()  # unleased instances, oldest first
         self._kept = []    # instances of failed stages whose last use is unknown
         self._bytes = 0
         self.reset_stats()
@@ -214,7 +270,9 @@ class Runner:
 
     def reset_stats(self) -> None:
         with self._lock:
-            self._stats = {"capture_s": 0.0, "evictions": 0}
+            self._stats = {"capture_s": 0.0, "evictions": 0,
+                           "freed_bytes": 0, "peak_bytes": self._bytes,
+                           "largest_bytes": 0}
             self._stages = {}
 
     def _stage(self, stage: str, key) -> dict:
@@ -226,159 +284,190 @@ class Runner:
     def stats(self) -> dict:
         """Since reset_stats: per stage the eager runs, captures, replays
         and distinct keys used; the seconds the captures took, the
-        evictions; now: the instances and their bytes."""
+        evictions, the bytes eviction gave back to the card (freed_bytes),
+        the most the instances held (peak_bytes) and one instance held
+        after its capture (largest_bytes); now: the instances and their
+        bytes (graph_bytes)."""
         with self._lock:
             out = {s: {**{k: v for k, v in d.items() if k != "keys"},
                        "keys": len(d["keys"])}
                    for s, d in sorted(self._stages.items())}
             out.update(self._stats)
-            out["instances"] = len(self._lru) + len(self._leased)
+            out["instances"] = sum(map(len, self._inst.values()))
             out["graph_bytes"] = self._bytes
             return out
 
     # -- leases -------------------------------------------------------------
 
     def lease(self, device, stage: str, key, nbytes: int,
-              paired: bool = False) -> Lease:
+              shared: bool = False) -> Lease:
         device = _device(device)
         dkey = (device, stage, key)
         with self._lock:
             self._stage(stage, key)
+            while True:
+                insts = self._inst.setdefault(dkey, [])
+                inst = next((i for i in insts if not i.leased), None)
+                if inst is not None or not (shared and insts):
+                    break
+                self._lock.wait()
+            if inst is None:
+                inst = _Instance(dkey, shared)
+                insts.append(inst)
+            else:
+                inst.leased = True
+                self._lru.pop(id(inst), None)
             warm = self._seen.get(dkey)
             if warm is None:
                 self._seen[dkey] = threading.Event()
-                inst = None
-                if paired:
-                    inst = _Instance(dkey)
-                    self._leased.add(inst)
-            else:
-                free = self._free.get(dkey)
-                inst = free.pop() if free else _Instance(dkey)
-                self._lru.pop(id(inst), None)
-                self._leased.add(inst)
-        if warm is None:
-            if inst is None:
-                return Lease(self, dkey, None, _buffer(nbytes, device), True)
-            inst.inputs = _buffer(nbytes, device)
-            return Lease(self, dkey, inst, inst.inputs, False, warmup=True)
-        warm.wait()  # the key's eager first run has made what it makes once
+        if warm is not None:
+            warm.wait()  # the key's eager first run made what it makes once
         if inst.inputs is None:
             inst.inputs = _buffer(nbytes, device)
         elif inst.event is not None:
             self.backend.wait(inst.event, device)
-        return Lease(self, dkey, inst, inst.inputs, False)
-
-    def _child(self, parent: Lease, stage: str, key, nbytes: int) -> Lease:
-        device = parent._dkey[0]
-        dkey = (device, stage, key)
-        with self._lock:
-            self._stage(stage, key)
-            warm = self._seen.get(dkey)
-            first = warm is None
-            if first:
-                self._seen[dkey] = threading.Event()
-            inst = None
-            if not (parent.eager or first):
-                inst = parent._inst.children.get(key)
-                if inst is None:
-                    inst = parent._inst.children[key] = _Instance(
-                        dkey, parent._inst)
-        if inst is None:
-            out = Lease(self, dkey, None, _buffer(nbytes, device), True)
-        else:
-            warm.wait()
-            if inst.inputs is None:
-                inst.inputs = _buffer(nbytes, device)
-            out = Lease(self, dkey, inst, inst.inputs, False)
-        out._done = True  # released with its parent
-        parent._children.append(out)
-        return out
+        return Lease(self, dkey, inst, inst.inputs, warm is None)
 
     def _run(self, ls: Lease, fn):
-        stage = ls._dkey[1]
-        if ls.eager:
-            try:
-                out = fn()
-            finally:
-                self._seen[ls._dkey].set()
-            with self._lock:
-                self._stage(stage, ls._dkey[2])["eager"] += 1
-            return out
+        stage, key = ls._dkey[1:]
         inst = ls._inst
         if ls._warmup:
             try:
                 fn()
-            finally:
-                self._seen[ls._dkey].set()
-            with self._lock:
-                self._stage(stage, ls._dkey[2])["eager"] += 1
-        if inst.graph is None:
-            root = inst.parent or inst
-            pool = (self.backend.pool(root.graph) if inst.parent is not None
-                    else None)
-            t0 = time.perf_counter()
-            try:
-                with span("g.capture", tag=f"{stage} {ls._dkey[2]}"):
-                    inst.graph, inst.outputs, inst.launches = \
-                        self.backend.capture(fn, ls._dkey[0], pool)
             except BaseException:
-                inst.broken = True
+                with self._lock:  # the next sight warms up again
+                    self._seen.pop(ls._dkey).set()
                 raise
-            nbytes = sum(i.inputs.numel() for i in (root,
-                                                    *root.children.values())
-                         if i.inputs is not None)
-            if hasattr(self.backend, "pool_bytes"):
-                nbytes += self.backend.pool_bytes(
-                    ls._dkey[0], self.backend.pool(root.graph))
+            self._seen[ls._dkey].set()
             with self._lock:
-                self._bytes += nbytes - root.nbytes
-                root.nbytes = nbytes
-                self._stats["capture_s"] += time.perf_counter() - t0
-                self._stage(stage, ls._dkey[2])["captures"] += 1
+                self._stage(stage, key)["eager"] += 1
+        if inst.graph is None:
+            self._capture(ls, fn)
+        pool = inst.pool
+        pool.lock.acquire()  # the pool's turn, given back at the release
+        ls._turn = pool
+        if pool.event is not None:
+            self.backend.wait(pool.event, ls._dkey[0])
         self.backend.replay(inst.graph)
         kernels.add_launches(inst.launches)
         with self._lock:
-            self._stage(stage, ls._dkey[2])["replays"] += 1
+            self._stage(stage, key)["replays"] += 1
         return inst.outputs
 
-    def _release(self, ls: Lease, ok: bool) -> None:
-        for x in (ls, *ls._children):  # a first sight that never ran
-            self._seen[x._dkey].set()
+    def _capture(self, ls: Lease, fn) -> None:
         inst = ls._inst
-        if inst is None:
-            return
-        event = self.backend.record(ls._dkey[0])
-        evict = []
+        device, stage, key = ls._dkey
+        t0 = time.perf_counter()
+        try:
+            with span("g.capture", tag=f"{stage} {key}"), self._turns:
+                pool = (self._pools.get((device, stage)) if inst.shared
+                        else None)
+                inst.graph, inst.outputs, inst.launches = \
+                    self.backend.capture(fn, device, pool and pool.handle)
+                with self._lock:
+                    if pool is None:
+                        pool = _Pool(self.backend.pool(inst.graph))
+                    elif self._pools.get((device, stage)) is not pool:
+                        pool.nbytes = 0  # let go meanwhile: counted anew
+                    if inst.shared:
+                        self._pools[(device, stage)] = pool
+                    pool.users += 1
+                    inst.pool = pool
+        except BaseException:
+            inst.broken = True
+            raise
+        held, nbytes = self._held(pool, inst)
         with self._lock:
-            self._leased.discard(inst)
-            broken = (not ok or inst.broken or inst.graph is None
-                      or any(c._inst is not None and c._inst.broken
-                             for c in ls._children))
-            if broken:
-                self._bytes -= inst.nbytes
-                evict.append((inst, event))
+            self._bytes += held - pool.nbytes + nbytes - inst.nbytes
+            pool.nbytes, inst.nbytes = held, nbytes
+            self._stats["peak_bytes"] = max(self._stats["peak_bytes"],
+                                            self._bytes)
+            self._stats["largest_bytes"] = max(
+                self._stats["largest_bytes"], held + nbytes)
+            self._stats["capture_s"] += time.perf_counter() - t0
+            self._stage(stage, key)["captures"] += 1
+
+    def _held(self, pool: _Pool, inst: _Instance) -> tuple:
+        """(the bytes of the pool, of the instance's static input), as the
+        allocator holds them."""
+        held, nbytes = self.backend.held_bytes(inst.dkey[0], [pool.handle],
+                                               [inst.inputs])
+        return held, nbytes
+
+    def _release(self, ls: Lease, ok: bool) -> None:
+        warm = self._seen.get(ls._dkey)
+        if warm is not None:  # a first sight that never ran
+            warm.set()
+        inst = ls._inst
+        event = self.backend.record(ls._dkey[0])
+        if ls._turn is not None:
+            ls._turn.event = event
+            ls._turn.lock.release()
+            ls._turn = None
+        drop = []
+        with self._lock:
+            inst.leased = False
+            if not ok or inst.broken or inst.graph is None:
+                drop.append((inst, event, self._forget(inst)))
             else:
                 inst.event = event
-                for c in ls._children:
-                    if c._inst is not None:
-                        c._inst.event = event
-                self._free.setdefault(inst.dkey, []).append(inst)
                 self._lru[id(inst)] = inst
             while self._bytes > self.budget and self._lru:
                 _, old = self._lru.popitem(last=False)
-                self._free[old.dkey].remove(old)
-                self._bytes -= old.nbytes
                 self._stats["evictions"] += 1
-                evict.append((old, old.event))
-        for old, ev in evict:  # the last replay done before the memory goes
-            try:
-                if ev is not None:
-                    self.backend.synchronize(ev)
-            except Exception:  # a failed stage's stream: keep its memory
-                self._kept.append(old)
-                continue
-            old.children.clear()
-            old.graph = old.outputs = old.inputs = None
+                drop.append((old, old.event, self._forget(old)))
+            self._lock.notify_all()
+        if drop:
+            self._drop(drop)
+
+    def _forget(self, inst: _Instance):
+        """Take the instance out of the runner and its bytes out of the
+        count (its pool's too where it was the last to use it, which is
+        then returned; else None). Under the lock."""
+        insts = self._inst[inst.dkey]
+        insts.remove(inst)
+        if not insts:
+            del self._inst[inst.dkey]
+        self._bytes -= inst.nbytes
+        pool = inst.pool
+        if pool is None:
+            return None
+        pool.users -= 1
+        if pool.users:
+            return None
+        self._bytes -= pool.nbytes
+        if self._pools.get(inst.dkey[:2]) is pool:
+            del self._pools[inst.dkey[:2]]
+        return pool
+
+    def _drop(self, drop: list) -> None:
+        """Each (instance, its last replay's event, its pool if it goes
+        with it), in the span g.evict: once the event is done its graph and
+        tensors go; then the pools that went back to the card, in the
+        last one's span. freed_bytes: what they counted, less what the
+        allocator still holds of the pools."""
+        freed, pools = 0, []
+        for n, (old, ev, pool) in enumerate(drop):
+            device, stage, key = old.dkey
+            with span("g.evict", tag=f"{stage} {key}"):
+                try:
+                    if ev is not None:
+                        self.backend.synchronize(ev)
+                except Exception:  # a failed stage's stream: keep its memory
+                    self._kept.append(old)
+                else:
+                    old.graph = old.outputs = old.inputs = None
+                    freed += old.nbytes
+                    if pool is not None:
+                        freed += pool.nbytes
+                        pools.append(pool.handle)
+                if n == len(drop) - 1:
+                    with self._turns:
+                        self.backend.give_back()
+                        freed -= sum(self.backend.held_bytes(
+                            device, pools)[:-1])
+        with self._lock:
+            self._stats["freed_bytes"] += freed
 
 
 def _buffer(nbytes: int, device) -> torch.Tensor:
@@ -403,15 +492,16 @@ def runner_for(device):
 
 
 def lease(device, stage: str, key, nbytes: int,
-          paired: bool = False) -> Lease:
+          shared: bool = False) -> Lease:
     """A task's lease of `stage` at `key` on `device` with a static input
     buffer of `nbytes` (runner_for's runner; without one a plain buffer,
-    and run() calls the step). paired: a child stage reads its outputs."""
+    and run() calls the step). shared: the key's one instance, in the
+    stage's shared pool (see the module's docstring)."""
     runner = runner_for(device)
     if runner is None:
         return Lease(None, (torch.device(device), stage, key),
-                     None, _buffer(nbytes, device), False)
-    return runner.lease(device, stage, key, nbytes, paired)
+                     None, _buffer(nbytes, device))
+    return runner.lease(device, stage, key, nbytes, shared)
 
 
 def stats() -> dict:

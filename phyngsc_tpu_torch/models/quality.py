@@ -62,6 +62,14 @@ def tree_of_position(pos: torch.Tensor, n_trees: int, L: int = 0,
     return ((pos * n_trees) // L).clamp(max=n_trees - 1)
 
 
+def tree_of_span(pos: torch.Tensor, n_trees: int,
+                 span_len: torch.Tensor) -> torch.Tensor:
+    """tree_of_position's proportional grouping of span_len positions, read
+    on the device (a 0-d tensor there, more than n_trees): the trees of a
+    plane wider than the sub-block's bucketed length."""
+    return ((pos * n_trees) // span_len).clamp(max=n_trees - 1)
+
+
 def tree_group_ids(L: int, n_trees: int) -> np.ndarray:
     """Static position -> tree map for grouping histograms (encode side)."""
     return (np.arange(L, dtype=np.int64) * n_trees // L).astype(np.int32)
@@ -69,14 +77,19 @@ def tree_group_ids(L: int, n_trees: int) -> np.ndarray:
 
 # -- analyze ----------------------------------------------------------------
 
-def analyze(qual: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
+def analyze(qual: torch.Tensor, lens: torch.Tensor,
+            span_len: torch.Tensor | None = None) -> torch.Tensor:
     """(R, L) symbols + (R,) record lengths -> (min(L, MAX_TREES), 256) int32
-    counts; long reads sum adjacent positions by tree_group_ids."""
+    counts; long reads sum adjacent positions by tree_group_ids, of the
+    span_len positions that a plane wider than them holds where given (a
+    0-d device tensor, tree_of_span)."""
     L = qual.shape[1]
     counts = histogram.position_histogram(qual, valid_mask(lens, L), ALPHABET)
     if L > MAX_TREES:
-        gid = constant(f"quality.tree_group_ids:{L}", lambda: tree_group_ids(
+        gid = (constant(f"quality.tree_group_ids:{L}", lambda: tree_group_ids(
             L, MAX_TREES).astype(np.int64), counts.device)
+            if span_len is None else tree_of_span(
+                torch.arange(L, device=counts.device), MAX_TREES, span_len))
         grouped = torch.zeros((MAX_TREES, ALPHABET), dtype=torch.int32,
                               device=counts.device)
         counts = grouped.index_add_(0, gid, counts)
@@ -197,13 +210,13 @@ def build_tables(counts: np.ndarray, cfg: CodecConfig) -> QualityTables:
 
 # -- encode -----------------------------------------------------------------
 
-def encode_tables(codes, lens, L: int) -> tuple:
+def encode_tables(codes, lens, L: int, span_len: int | None = None) -> tuple:
     """Host tables of encode_device for (n_trees, A) code tables at read
     width L: the (n_trees, A) int16 fused entries (lookup.fused_table_np)
-    and the (L,) uint8 tree of each position (tree_of_position, container
-    v4+)."""
+    and the (L,) uint8 tree of each position (tree_of_position of span_len
+    positions, default L; container v4+)."""
     tab = lookup.fused_table_np(codes, lens)
-    tree = tree_of_position(torch.arange(L), tab.shape[0], L)
+    tree = tree_of_position(torch.arange(L), tab.shape[0], span_len or L)
     return tab.view(np.int16), tree.numpy().astype(np.uint8)
 
 
@@ -248,20 +261,25 @@ def decode_walk(plane: torch.Tensor, lens: torch.Tensor, luts, L: int,
 
 def decode_walk_masked(plane: torch.Tensor, lens: torch.Tensor, luts,
                        L: int, records_per_substream: int, lut_bits: int,
-                       legacy: bool = False) -> torch.Tensor:
+                       legacy: bool = False,
+                       span_len: torch.Tensor | None = None) -> torch.Tensor:
     """Variable-length decode on K3 (port of decode_device_walk_masked): slot
     t = g*L + p of lane s is position p of record s*G + g, consumes a symbol
     only where p < its record's length, and takes tree
     tree_of_position(p). plane (Wmax, Sp) from bitpack.dense_words, lens
-    (S*G,) record lengths, luts the host LUTs as for decode_walk. Returns
-    (S*G, L) uint8 (0 where invalid)."""
+    (S*G,) record lengths, luts the host LUTs as for decode_walk. span_len:
+    the positions the trees group when the plane is wider (a 0-d device
+    tensor, tree_of_span); None: L. Returns (S*G, L) uint8 (0 where
+    invalid)."""
     G = records_per_substream
     S = lens.shape[0] // G
     luts = bitpack.walk_luts(luts, lut_bits, plane.device,
                              kernels.masked_ids(L))
     slots = valid_mask(lens, L).reshape(S, G * L)
-    tid = tree_of_position(torch.arange(L, device=plane.device),
-                           luts.n_trees, L, legacy)
+    pos = torch.arange(L, device=plane.device)
+    tid = (tree_of_position(pos, luts.n_trees, L, legacy)
+           if span_len is None or legacy
+           else tree_of_span(pos, luts.n_trees, span_len))
     syms = bitpack.walk_masked(plane, slots, luts, tid, plain2=False)
     return syms.reshape(S * G, L)
 

@@ -295,30 +295,33 @@ def _walk_plain(plane, luts, tree_step, consume, lut_bits, plain2):
     (len << 9) | sym up in luts[tree_step[t]] (or takes (2 << 9) | top two
     bits when plain2), and emits sym and advances by len only where
     consume[s, t]. Reads past row Wmax give 0. Returns (S, T) int64
-    symbols, 0 where not consumed."""
+    symbols, 0 where not consumed. The steps run in numpy on the host, one
+    vector of lanes a step; a step that no lane consumes changes nothing
+    and is left out."""
     S, T = consume.shape
-    dev = plane.device
-    w = torch.cat([plane[:, :S].long() & _MASK32,
-                   torch.zeros((2, S), dtype=torch.int64, device=dev)])
+    mask = int(_MASK32)
+    w = np.concatenate([plane[:, :S].cpu().numpy().astype(np.int64) & mask,
+                        np.zeros((2, S), np.int64)])
     last = w.shape[0] - 1
-    lanes = torch.arange(S, device=dev)
-    wi = torch.zeros(S, dtype=torch.int64, device=dev)
-    bit = torch.zeros(S, dtype=torch.int64, device=dev)
-    out = torch.zeros((S, T), dtype=torch.int64, device=dev)
-    for t in range(T):
-        w0 = w[wi.clamp(max=last), lanes]
-        w1 = w[(wi + 1).clamp(max=last), lanes]
-        win = ((w0 << bit) | (w1 >> (WORD_BITS - bit))) & _MASK32
-        if plain2:
-            e = (2 << 9) | (win >> 30)
-        else:
-            e = luts[tree_step[t]][win >> (WORD_BITS - lut_bits)]
-        c = consume[:, t]
-        out[:, t] = torch.where(c, e & 0x1FF, 0)
-        bit = bit + torch.where(c, e >> 9, 0)
-        wi = wi + (bit >> 5)
-        bit = bit & 31
-    return out
+    lut = None if plain2 else luts.cpu().numpy().astype(np.int64)
+    ts = None if plain2 else tree_step.cpu().numpy()
+    con = consume.cpu().numpy()
+    lanes = np.arange(S)
+    wi = np.zeros(S, np.int64)
+    bit = np.zeros(S, np.int64)
+    out = np.zeros((S, T), np.int64)
+    shift = WORD_BITS - lut_bits
+    for t in np.flatnonzero(con.any(axis=0)):
+        w0 = w[np.minimum(wi, last), lanes]
+        w1 = w[np.minimum(wi + 1, last), lanes]
+        win = ((w0 << bit) | (w1 >> (WORD_BITS - bit))) & mask
+        e = (2 << 9) | (win >> 30) if plain2 else lut[ts[t]][win >> shift]
+        c = con[:, t]
+        out[:, t] = np.where(c, e & 0x1FF, 0)
+        bit += np.where(c, e >> 9, 0)
+        wi += bit >> 5
+        bit &= 31
+    return torch.from_numpy(out).to(plane.device)
 
 
 def walk_uniform_plain(plane, totals, luts, tree_of_pos, lut_bits: int,

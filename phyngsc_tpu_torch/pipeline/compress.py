@@ -155,8 +155,11 @@ def encode_subblocks_pipelined(buf: np.ndarray, regions, cfg: CodecConfig,
             w, i, fa = a_q.pop(0)
             with span("drv.wait_a", wait=True, sub=i):
                 a = fa.result()
-            b = _timed("stage_b", w, i, sbmod.stage_b, a, cfg, codec,
-                       buckets)
+            # stage B, then its seconds added to the sinks, whose locks
+            # the pool's tasks take too: a wait for them is the loop's
+            with span("drv.stage_b", sub=i):
+                b = _timed("stage_b", w, i, sbmod.stage_b, a, cfg, codec,
+                           buckets)
             with span("drv.submit", sub=i):
                 b_q.append((w, i, executor.submit(
                     sbmod.task(_timed), "stage_c", w, i, sbmod.stage_c, b,

@@ -71,7 +71,7 @@ from phyngsc_tpu_torch.device import (Staging, fetch_async, layout_bytes,
 from phyngsc_tpu_torch.utils.bitio import BitReader, BitWriter
 from phyngsc_tpu_torch.utils.fastq import FastqFormatError, RecordIndex
 from phyngsc_tpu_torch.utils.logging import (  # noqa: F401
-    recorded, recorded_calls, span, task)
+    count, counting, recorded, recorded_calls, span, task)
 from phyngsc_tpu_torch.utils.shapes import (BucketCtx, bucket_length,
                                             bucket_records)
 from phyngsc_tpu_torch.models import dna, quality, title
@@ -186,6 +186,38 @@ def _unpack_fixed_np(data: bytes, width: int, n: int) -> np.ndarray:
     return (bits << np.arange(width - 1, -1, -1, dtype=np.int64)[None, :]).sum(axis=1)
 
 
+#: rungs a doubling of the ladder that sizes long variable-length planes
+RUNGS = 4
+
+
+def ladder(n: int) -> int:
+    """The least rung 2^k * (1 + j / RUNGS), j < RUNGS, at or above n >= 1:
+    RUNGS sizes a doubling, each less than 1 + 1 / RUNGS of what it holds
+    (past RUNGS), and a multiple of 2^(k - 2) where 2^k < n."""
+    if n <= RUNGS:
+        return max(n, 1)
+    step = (1 << ((n - 1).bit_length() - 1)) // RUNGS
+    return -(-n // step) * step
+
+
+def plane_length(L: int, variable: bool) -> int:
+    """The position axis of a sub-block's planes and stage keys on one
+    device, for the format's bucketed length L (bucket_length(Lt)): L for
+    uniform lengths and for variable lengths of up to quality.MAX_TREES
+    positions (their keys as ever), else the ladder's rung at or above L,
+    so that long reads of any lengths share a few planes (65,536 at most).
+    Positions past L emit no bits, and the quality trees keep grouping the
+    format's L positions (analyze_all and the decode read L from their
+    upload's header), so the bytes do not change."""
+    return ladder(L) if variable and L > quality.MAX_TREES else L
+
+
+def _rung(n: int, on: bool) -> int:
+    """A size of a laddered sub-block's key at its ladder rung (on), else
+    n."""
+    return ladder(n) if on else n
+
+
 def _word_cap(R: int, L: int, G: int) -> int:
     """Worst-case packed size: <= 16 bits/symbol + one alignment word per
     substream."""
@@ -266,21 +298,24 @@ def _upload_rows(plane: np.ndarray, lo: int, rows: int,
 
 
 def analyze_rows(seq: torch.Tensor, qual: torch.Tensor, lens: torch.Tensor,
-                 small: bool):
+                 small: bool, span_len=None):
     """Ambiguity transfer of (rows, L) planes on one device and both
     histograms (K1) over every row (padding rows have length 0, so they
     count nothing): (qual_t, keep, quality counts (min(L, 256), 256), DNA
-    counts (256,)). small: every byte of the sub-block's bases is < 128."""
+    counts (256,)). small: every byte of the sub-block's bases is < 128.
+    span_len: the format's L of a laddered plane (a 0-d device tensor),
+    whose positions the quality trees group; None: L."""
     qual_t, keep, _ = dna.transfer_ambiguity(seq, qual, lens)
-    return (qual_t, keep, quality.analyze(qual_t, lens),
+    return (qual_t, keep, quality.analyze(qual_t, lens, span_len),
             dna.analyze(seq, keep, small_alpha=small))
 
 
 class AnalyzeKey(NamedTuple):
     """The static arguments of analyze_all (phyngsc_tpu's _analyze_all
-    static_argnames, with the sizes its traced shapes fix): Lt None for
-    variable lengths (uploaded, else made from the live count); n_exc, the
-    bucketed exception words of SEQ_2BIT_EXC (transfer._exc_bucket)."""
+    static_argnames, with the sizes its traced shapes fix): L the planes'
+    width (plane_length); Lt None for variable lengths (uploaded, else made
+    from the live count); n_exc, the bucketed exception words of
+    SEQ_2BIT_EXC (transfer._exc_bucket)."""
 
     Rp: int
     L: int
@@ -304,10 +339,18 @@ class AnalyzeKey(NamedTuple):
                                   np.int32), ((n_words,), np.int32)]
 
 
+def _laddered(key) -> bool:
+    """Whether a stage key's planes are on the ladder (plane_length): its
+    quality trees then group the format's L, which the upload carries,
+    and its graphs share their stage's pool (graphs.lease shared)."""
+    return key.Lt is None and key.L > quality.MAX_TREES
+
+
 def analyze_all(hdr: torch.Tensor, lens_in: torch.Tensor,
                 words: torch.Tensor, key: AnalyzeKey) -> tuple:
     """Stage A's device step, phyngsc_tpu's _analyze_all: the upload (hdr:
-    [R, ...] int32; lens_in: the (Rp,) lengths when they vary; words: the
+    [R, the format's L, ...] int32; lens_in: the (Rp,) lengths when they
+    vary; words: the
     sequence words of the R live rows [and their exceptions], then the
     quality words) -> the (Rp, L) planes, the ambiguity transfer, both
     histograms. Shapes and every host value come from `key`: R is read on
@@ -342,8 +385,8 @@ def analyze_all(hdr: torch.Tensor, lens_in: torch.Tensor,
     qual = torch.where(valid, qual, 0)
     if key.is_delta:
         seq = dna.delta_translate(seq, lens)
-    qual_t, keep, q_counts, d_counts = analyze_rows(seq, qual, lens,
-                                                    key.small)
+    qual_t, keep, q_counts, d_counts = analyze_rows(
+        seq, qual, lens, key.small, hdr[1] if _laddered(key) else None)
     return seq, qual_t, keep, lens, torch.cat([q_counts.reshape(-1),
                                                d_counts.reshape(-1)])
 
@@ -401,10 +444,10 @@ class _StageA:
     keep are tensors, or with a codec lists of each shard's rows on its
     device."""
 
-    __slots__ = ("R", "Lt", "L", "Rp", "lens_np", "tlens_np", "titles_np",
-                 "is_delta", "seq", "lens", "qual_t", "keep", "counts_blob",
-                 "n_q_counts", "t_future", "crc", "streams", "key",
-                 "lease")
+    __slots__ = ("R", "Lt", "L", "W", "Rp", "lens_np", "tlens_np",
+                 "titles_np", "is_delta", "seq", "lens", "qual_t", "keep",
+                 "counts_blob", "n_q_counts", "t_future", "crc", "streams",
+                 "key")
 
 
 class _StageB:
@@ -425,19 +468,23 @@ def stage_a(buf: np.ndarray, idx: RecordIndex, cfg: CodecConfig,
     then go to its own device (`device` is unused). streams: the task's
     streams (device.task_streams), on which the task's device work runs;
     None: the current streams. One device: the packed live rows go up in
-    one copy into analyze_all's input (graphs.lease: a graph's static input on a card, leased until
-    stage_b's fetch is queued). The counts' fetch starts here, as soon as
-    the histograms are queued (phyngsc_tpu's _host_async)."""
+    one copy into analyze_all's input (graphs.lease: a graph's static
+    input on a card, leased until its outputs are copied out). The counts'
+    fetch starts here, as soon as the histograms are queued (phyngsc_tpu's
+    _host_async)."""
     st = _StageA()
     st.t_future = None
     st.crc = None
     st.streams = streams
-    st.key = st.lease = None
+    st.key = None
     R = st.R = idx.n_records
     G = cfg.records_per_substream
     lens_np = st.lens_np = idx.seq_len.astype(np.int32)
     Lt = st.Lt = int(lens_np.max()) if R else 1
     L = st.L = bucket_length(Lt)
+    # the planes' width: the sharded codec's steps take the format's L
+    W = st.W = (L if codec is not None
+                else plane_length(L, _is_variable(lens_np)))
     n_shards = codec.n_data if codec is not None else 1
     Rp = st.Rp = rp if rp is not None else bucket_records(R, G, n_shards)
     if Lt > 0xFFFF:
@@ -449,15 +496,15 @@ def stage_a(buf: np.ndarray, idx: RecordIndex, cfg: CodecConfig,
 
     with span("a.gather"):
         g3 = (_native.gather3(buf, idx.title_start, tlens_np, TL,
-                              idx.seq_start, idx.qual_start, lens_np, L)
+                              idx.seq_start, idx.qual_start, lens_np, W)
               if R else None)
         if g3 is not None:
             st.titles_np, seq_np, qual_np, qmax = g3
         else:
             seq_np = _gather_matrix(buf, idx.seq_start,
-                                    lens_np.astype(np.int64), L)
+                                    lens_np.astype(np.int64), W)
             qual_np = _gather_matrix(buf, idx.qual_start,
-                                     lens_np.astype(np.int64), L)
+                                     lens_np.astype(np.int64), W)
             st.titles_np = _gather_matrix(buf, idx.title_start,
                                           tlens_np.astype(np.int64), TL)
             qmax = int(qual_np.max()) if R else 0
@@ -506,45 +553,50 @@ def stage_a(buf: np.ndarray, idx: RecordIndex, cfg: CodecConfig,
 
 def _analyze_device(st: _StageA, seq_np: np.ndarray, qual_np: np.ndarray,
                     device) -> torch.Tensor:
-    """Stage A on one device: the host (R, L) planes packed (ops/transfer),
-    uploaded with the live count (and the lengths when they vary) in one
-    copy into a leased static input, and analyze_all run on it (st.lease);
-    st.key, the outputs and the counts (returned) set."""
-    R, L, Rp = st.R, st.L, st.Rp
+    """Stage A on one device: the host (R, W) planes packed (ops/transfer)
+    into pinned staging, then uploaded with the live count (and the
+    lengths when they vary) in one copy into a leased static input, and
+    analyze_all run on it; st.key, the outputs and the counts (returned)
+    set, copied out of a graph's static outputs before the lease goes. The
+    planes are st.W wide; the header carries the format's L."""
+    R, W, Rp = st.R, st.W, st.Rp
     with span("a.pack"):
         s_mode, s_words = transfer.pack_seq_np(seq_np)
         q_mode, q_words = transfer.pack_qual_np(qual_np)
-        n_exc = (s_words.shape[0] - transfer.n_words(R * L, "seq",
+        n_exc = (s_words.shape[0] - transfer.n_words(R * W, "seq",
                                                      transfer.SEQ_2BIT)
                  if s_mode == transfer.SEQ_2BIT_EXC else 0)
         variable = _is_variable(st.lens_np)
-        key = st.key = AnalyzeKey(Rp, L, None if variable else st.Lt, s_mode,
+        key = st.key = AnalyzeKey(Rp, W, None if variable else st.Lt, s_mode,
                                   q_mode, n_exc, st.is_delta,
                                   transfer.seq_alpha_small(s_mode, seq_np))
     with span("a.upload_analyze"):
         cap = key.specs(key.n_words())
-        ls = st.lease = graphs.lease(device, "analyze_all", key,
-                                     layout_bytes(cap, 4), paired=True)
         ns = s_words.shape[0]
         # the header, the lengths and both packers' words, written straight
         # into the pinned staging buffer
-        staged = Staging(key.specs(ns + q_words.shape[0]), device, align=4,
-                         into=ls.inputs)
+        staged = Staging(key.specs(ns + q_words.shape[0]), device, align=4)
         hdr, lens_in, words = staged.views
-        hdr[:] = (R, 0, 0, 0)
+        hdr[:] = (R, st.L, 0, 0)
         if variable:
             lens_in[:R] = st.lens_np
             lens_in[R:] = 0
         words.view(np.uint32)[:ns] = s_words
         words.view(np.uint32)[ns:] = q_words
+        ls = graphs.lease(device, "analyze_all", key, layout_bytes(cap, 4),
+                          shared=_laddered(key))
         try:
-            _to_device(staged, device)
+            _to_device(staged.into(ls.inputs), device)
             args = views(ls.inputs, cap, 4)
-            st.seq, st.qual_t, st.keep, st.lens, counts = ls.run(
-                lambda: analyze_all(*args, key))
+            out = ls.run(lambda: analyze_all(*args, key))
+            if ls.static:  # the task's own, before the next replay
+                out = [t.clone() for t in out]
+            st.seq, st.qual_t, st.keep, st.lens, counts = out
+            del out
         except BaseException:
             ls.release(ok=False)
             raise
+        ls.release()
     return counts
 
 
@@ -582,7 +634,7 @@ def stage_b(a: _StageA, cfg: CodecConfig, codec=None,
             q_off, q_A = lookup.window_np(q_counts)
             tables = list(quality.encode_tables(
                 st.q_tables.codes[:, q_off:q_off + q_A],
-                st.q_tables.lens[:, q_off:q_off + q_A], a.L))
+                st.q_tables.lens[:, q_off:q_off + q_A], a.W, a.L))
             d_off = 0
             if huffman_dna:
                 d_off, d_A = lookup.window_np(d_counts.reshape(1, -1))
@@ -596,7 +648,7 @@ def stage_b(a: _StageA, cfg: CodecConfig, codec=None,
         # a shard's stream needs at most the whole sub-block's words and at
         # most the worst case of its own rows
         rows = a.Rp // (codec.n_data if codec is not None else 1)
-        worst = _word_cap(rows, a.L, G)
+        worst = _word_cap(rows, a.W, G)
         q_cap = _exact_cap(q_counts, quality.lens_rows_for(
             st.q_tables, q_counts.shape[0]), S, worst)
         d_cap = _exact_cap(d_counts, st.d_plan.lens_tab if huffman_dna
@@ -623,35 +675,52 @@ def stage_b(a: _StageA, cfg: CodecConfig, codec=None,
 def _encode_device(a: _StageA, tables: list, q_off: int, d_off: int,
                    worst: int, q_cap: int, d_cap: int, mode: int, G: int,
                    q_group: int, d_group: int, buckets):
-    """Stage B on one device: the tables and the window origins in one copy
-    into encode_all's static input (a child of stage A's lease), the caps
-    promoted as phyngsc_tpu promotes them (BucketCtx.pick_words, keyed by
-    Rp), encode_all run on stage A's outputs, and the fetch of the blob's
-    pieces up to the exact caps (stage_c reads exactly today's layout)
-    started; then stage A's lease is released. Returns the Pending."""
+    """Stage B on one device: stage A's planes copied into encode_all's
+    static input (graphs.lease) where it is a graph's, and the tables and
+    the window origins uploaded after them in one copy; the caps promoted
+    as phyngsc_tpu promotes them (BucketCtx.pick_words, keyed by Rp; a
+    laddered sub-block's from their ladder rungs); encode_all run, and the
+    fetch of the blob's pieces up to the exact caps (stage_c reads exactly
+    today's layout) started before the lease goes. Returns the Pending."""
     qc, dc = q_cap, d_cap
     if buckets is not None:
-        qc = buckets.pick_words(f"enc_q:{a.Rp}", q_cap, worst)
-        dc = buckets.pick_words(f"enc_d:{a.Rp}", d_cap, worst)
+        on = _laddered(a.key)
+        qc = buckets.pick_words(f"enc_q:{a.Rp}",
+                                min(_rung(q_cap, on), worst), worst)
+        dc = buckets.pick_words(f"enc_d:{a.Rp}",
+                                min(_rung(d_cap, on), worst), worst)
     pieces = [*tables, np.array([q_off, d_off], np.int32)]
     key = EncodeKey(a.key, tuple(t.shape for t in tables), mode, G, qc, dc,
                     q_group, d_group)
+    planes = [a.qual_t, a.keep, a.seq, a.lens]
+    p_specs = [(tuple(t.shape), _NP_DTYPES[t.dtype]) for t in planes]
+    at = layout_bytes(p_specs)
+    ls = graphs.lease(a.seq.device, "encode_all", key, at + layout_bytes(
+        [(t.shape, t.dtype) for t in pieces]), shared=_laddered(a.key))
     try:
-        ls = a.lease.child("encode_all", key, layout_bytes(
-            [(t.shape, t.dtype) for t in pieces]))
-        ups = _upload_together(pieces, a.seq.device, into=ls.inputs)
+        if ls.static:
+            for v, t in zip(views(ls.inputs, p_specs), planes):
+                v.copy_(t)
+            planes = views(ls.inputs, p_specs)
+        ups = _upload_together(pieces, a.seq.device, into=ls.inputs[at:])
         q_tab, q_tree, *d_tab = ups[:-1]
         blob = ls.run(lambda: encode_all(
-            a.qual_t, a.keep, a.seq, a.lens, q_tab, q_tree,
-            d_tab[0] if d_tab else None, ups[-1], G=G, q_cap=qc, d_cap=dc,
-            mode=mode, q_group=q_group, d_group=d_group))
+            *planes, q_tab, q_tree, d_tab[0] if d_tab else None, ups[-1],
+            G=G, q_cap=qc, d_cap=dc, mode=mode, q_group=q_group,
+            d_group=d_group))
         pending = fetch_async(blob[:q_cap], blob[qc:qc + d_cap],
                               blob[qc + dc:])
+        del blob  # none of the instance's outputs held past the lease
     except BaseException:
-        a.lease.release(ok=False)
+        ls.release(ok=False)
         raise
-    a.lease.release()
+    ls.release()
     return pending
+
+
+#: numpy dtypes of stage A's outputs, for views of a static input
+_NP_DTYPES = {torch.uint8: np.uint8, torch.bool: np.bool_,
+              torch.int32: np.int32}
 
 
 def stage_c(b: _StageB, cfg: CodecConfig) -> bytes:
@@ -739,10 +808,10 @@ class _DParsed:
     """Host-side parse of one sub-block payload: everything the device
     decode needs, as numpy arrays and tables."""
 
-    __slots__ = ("R", "Lt", "L", "Rp", "G", "variable", "is_delta", "crc",
-                 "lens_np", "titles_np", "tlens_np", "q_tables", "q_sub",
-                 "q_words", "d_plan", "d_sub", "d_words", "out_alpha",
-                 "d_alpha", "q6")
+    __slots__ = ("R", "Lt", "L", "W", "Rp", "G", "variable", "is_delta",
+                 "crc", "lens_np", "titles_np", "tlens_np", "q_tables",
+                 "q_sub", "q_words", "d_plan", "d_sub", "d_words",
+                 "out_alpha", "d_alpha", "q6")
 
 
 def _decode_parse(data: bytes, cfg: CodecConfig, executor=None) -> _DParsed:
@@ -761,7 +830,7 @@ def _decode_parse(data: bytes, cfg: CodecConfig, executor=None) -> _DParsed:
         br = BitReader(meta_sec)
         R = p.R = br.get_uint(4)
         Lt = p.Lt = br.get_bits(16)
-        p.L = bucket_length(Lt)
+        p.L = p.W = bucket_length(Lt)  # W: the planes' (_decode_device)
         flags = br.get_byte()
         p.variable = bool(flags & FLAG_VARIABLE_LENGTH)
         p.is_delta = bool(flags & FLAG_DELTA)
@@ -978,7 +1047,7 @@ def decode_wires(p: _DParsed, cfg: CodecConfig) -> tuple:
     here, before anything is uploaded."""
     bits = cfg.max_code_len
     q = tables.lens_wire(p.q_tables.lens, p.q_tables.singletons, bits,
-                         kernels.masked_ids(p.L) if p.variable
+                         kernels.masked_ids(p.W) if p.variable
                          else max(p.Lt, 1))
     d = (tables.lens_wire(p.d_plan.lens_tab[None, :], [p.d_plan.singleton],
                           bits) if p.d_plan.mode != dna.MODE_PLAIN else None)
@@ -996,7 +1065,8 @@ class OutKey(NamedTuple):
 class DecodeKey(NamedTuple):
     """The static arguments of decode_walk_fused (phyngsc_tpu's
     _decode_walk_fused static_argnames under PHYNGSC_DENSIFY=dma): rows =
-    S * G decoded; Lt None for variable lengths; n_words, the word buffer's
+    S * G decoded; L the planes' width (plane_length); Lt None for
+    variable lengths; n_words, the word buffer's
     capacity; q and d, each stream's walk-table shape (n_trees, k, own,
     n_blocks, n: the launch arguments K6, K2 and K3 take by value), d None
     in plain mode; the planes' Wmax and Sp; out, the packed fetch's OutKey
@@ -1063,8 +1133,10 @@ def _decode_inputs(p: _DParsed, cfg: CodecConfig, s0: int, s1: int,
     first word of lane s0. With the driver's buckets (BucketCtx, on its
     thread in task order) the word capacity, the plane heights and the
     walk tables' layouts are promoted as phyngsc_tpu's decode promotes
-    its word pads and plane heights (keyed by Rp); else they are exact."""
-    G, bits = p.G, cfg.max_code_len
+    its word pads and plane heights (keyed by Rp; a laddered sub-block's
+    from their ladder rungs); else they are exact. The planes are p.W
+    wide; the header carries the format's L."""
+    G, bits, W = p.G, cfg.max_code_len, p.W
     q_sub, d_sub = p.q_sub[s0:s1], p.d_sub[s0:s1]
     q_wmax, sp = bitpack.plane_geometry(q_sub, G, p.L, bits)
     d_wmax, _ = bitpack.plane_geometry(d_sub, G, p.L, bits)
@@ -1083,12 +1155,13 @@ def _decode_inputs(p: _DParsed, cfg: CodecConfig, s0: int, s1: int,
     cap = nq + d_words.shape[0]
     q_wire, d_wire = wires
     if buckets is not None:
-        cap = (buckets.pick_words(f"dec_q:{p.Rp}", _padded(nq))
-               + buckets.pick_words(f"dec_d:{p.Rp}",
-                                    _padded(d_words.shape[0])))
-        q_wmax = buckets.pick_words(f"wmax_q:{p.Rp}", q_wmax)
-        d_wmax = buckets.pick_words(f"wmax_d:{p.Rp}", d_wmax)
-        q_wire = _widen(q_wire, "own_q", p.Rp, kernels.masked_ids(p.L)
+        on = p.variable and W > quality.MAX_TREES
+        cap = (buckets.pick_words(f"dec_q:{p.Rp}", _rung(_padded(nq), on))
+               + buckets.pick_words(f"dec_d:{p.Rp}", _rung(
+                   _padded(d_words.shape[0]), on)))
+        q_wmax = buckets.pick_words(f"wmax_q:{p.Rp}", _rung(q_wmax, on))
+        d_wmax = buckets.pick_words(f"wmax_d:{p.Rp}", _rung(d_wmax, on))
+        q_wire = _widen(q_wire, "own_q", p.Rp, kernels.masked_ids(W)
                         if p.variable else max(p.Lt, 1), buckets)
         if d_wire is not None:
             d_wire = _widen(d_wire, "own_d", p.Rp, 1, buckets)
@@ -1100,13 +1173,14 @@ def _decode_inputs(p: _DParsed, cfg: CodecConfig, s0: int, s1: int,
         lens16 = np.zeros(rows, np.uint16)
         lens16[:live] = p.lens_np[s0 * G:s0 * G + live]
         lens16 = lens16.view(np.int16)
-    pieces = [np.array([live, 0, 0, 0], np.int32), bitpack.lane_table(q_sub),
+    pieces = [np.array([live, p.L, 0, 0], np.int32),
+              bitpack.lane_table(q_sub),
               d_lanes, dna.DECODE_TABLES, *q_wire.pieces(),
               *(d_wire.pieces() if d_wire else (_NONE, _NONE)), lens16,
               _NONE if out_meta is None else out_meta.index_table(),
               np.concatenate([q_words, d_words])]
     key = DecodeKey(
-        rows, S, G, p.L, None if p.variable else p.Lt, bits,
+        rows, S, G, W, None if p.variable else p.Lt, bits,
         bool(cfg.legacy_tail_trees), cap, _table_shape(q_wire),
         _table_shape(d_wire), q_wmax, d_wmax, sp,
         None if out_meta is None else OutKey(out_meta.w, out_meta.q6,
@@ -1141,7 +1215,8 @@ def decode_walk_fused(pieces, key: DecodeKey, wires: tuple) -> torch.Tensor:
     q_plane = bitpack.dense_words(words, q_lanes, key.q_wmax, key.sp)
     if key.Lt is None:
         qual_t = quality.decode_walk_masked(
-            q_plane, lens, q_walk, L, G, bits, legacy=key.legacy)
+            q_plane, lens, q_walk, L, G, bits, legacy=key.legacy,
+            span_len=hdr[1] if _laddered(key) else None)
     else:
         qual_t = quality.decode_walk(
             q_plane, lens, q_walk, L, key.Lt, G, bits, legacy=key.legacy)
@@ -1171,15 +1246,51 @@ def decode_lanes(p: _DParsed, cfg: CodecConfig, device, s0: int, s1: int,
     return decode_walk_fused(_upload_together(pieces, device), key, wires)
 
 
+#: the walks' chain floor: one step, a table load and a shift, takes 30
+#: cycles of an H100's 1.98 GHz clock (PERF.md section 6)
+STEP_S = 30 / 1.98e9
+
+
+def walk_counts(p: _DParsed) -> dict:
+    """The two walk launches of a decoded sub-block, from its lengths and
+    its substream table: for the quality walk (K2, or K3 with a tree a
+    position) and the DNA walk (K3), the lanes, their steps summed and the
+    longest lane's. A quality step decodes one symbol; a DNA step one
+    symbol (Huffman; an upper bound where bases moved into quality) or,
+    plain 2-bit, the kept symbols of one 16-slot group of the lane's slots
+    (record r's at r * W, csrc/walk.cu) that holds any."""
+    S, G = p.q_sub.shape[0], p.G
+    lens = np.zeros(S * G, np.int64)
+    lens[:p.R] = p.lens_np
+    q = lens.reshape(S, G).sum(axis=1)
+    d = q
+    if p.d_plan.mode == dna.MODE_PLAIN:
+        first = np.arange(S * G, dtype=np.int64) * p.W // 16
+        last = (np.arange(S * G, dtype=np.int64) * p.W + lens - 1) // 16
+        groups = np.where(lens > 0, last - first + 1, 0)
+        # a group that the lane's previous record ends in counts once
+        groups[1:] -= ((lens[1:] > 0) & (lens[:-1] > 0)
+                       & (first[1:] == last[:-1])
+                       & (np.arange(1, S * G) % G != 0))
+        d = groups.reshape(S, G).sum(axis=1)
+    out = {}
+    for k, v in (("q", q), ("d", d)):
+        out[f"walk.{k}.lanes"] = S
+        out[f"walk.{k}.steps"] = int(v.sum())
+        out[f"walk.{k}.longest"] = int(v.max(initial=0))
+    return out
+
+
 def _decode_device(p: _DParsed, cfg: CodecConfig, device, codec=None,
                    buckets=None) -> tuple:
     """(fetches, out_meta) of the sub-block, each fetch a device.Pending.
     One device: the packed live rows (out_meta = _out_meta(p)), or the
-    restored (2, Rp, L) planes where out_meta is None, by decode_walk_fused
+    restored (2, Rp, W) planes where out_meta is None, by decode_walk_fused
     on a leased static input (graphs.lease), released once the fetch is
-    queued. With a codec (parallel.mesh.ShardedSubblockCodec): each
-    shard's contiguous range of whole lanes on its own device, restored
-    planes in row order."""
+    queued; p.W set (plane_length), and the walks' counts added to the
+    span d.launch (walk_counts). With a codec
+    (parallel.mesh.ShardedSubblockCodec): each shard's contiguous range of
+    whole lanes on its own device, restored planes in row order."""
     if not p.R:
         return [fetch_async(torch.zeros((2, 0, p.L), dtype=torch.uint8,
                                         device=device))], None
@@ -1187,6 +1298,8 @@ def _decode_device(p: _DParsed, cfg: CodecConfig, device, codec=None,
         # both tables are checked before anything is uploaded
         for sub in (p.q_sub, p.d_sub):
             bitpack.plane_geometry(sub, p.G, p.L, cfg.max_code_len)
+        if codec is None:
+            p.W = plane_length(p.L, p.variable)
         wires = decode_wires(p, cfg)
     if codec is not None:
         with span("d.launch"):
@@ -1197,10 +1310,12 @@ def _decode_device(p: _DParsed, cfg: CodecConfig, device, codec=None,
         key, pieces, cap, wires = _decode_inputs(p, cfg, 0, p.q_sub.shape[0],
                                                  wires, meta, buckets)
     with span("d.launch"):
+        if counting():
+            count(**walk_counts(p))
         specs = ([(a.shape, a.dtype) for a in pieces[:-1]]
                  + [((cap,), np.int32)])
         ls = graphs.lease(device, "decode_walk_fused", key,
-                          layout_bytes(specs))
+                          layout_bytes(specs), shared=_laddered(key))
         try:
             _upload_together(pieces, device, into=ls.inputs)
             args = views(ls.inputs, specs)
@@ -1208,9 +1323,10 @@ def _decode_device(p: _DParsed, cfg: CodecConfig, device, codec=None,
             if meta is None:
                 pending = fetch_async(out)
             else:  # the live rows' prefix of each part
-                n_sw, _ = _out_fetch_words(key.rows * p.L, meta.w, meta.q6)
-                s_live, q_live = _out_fetch_words(p.R * p.L, meta.w, meta.q6)
+                n_sw, _ = _out_fetch_words(key.rows * p.W, meta.w, meta.q6)
+                s_live, q_live = _out_fetch_words(p.R * p.W, meta.w, meta.q6)
                 pending = fetch_async(out[:s_live], out[n_sw:n_sw + q_live])
+            del out  # none of the instance's outputs held past the lease
         except BaseException:
             ls.release(ok=False)
             raise
@@ -1230,11 +1346,12 @@ def decode_stage_a(data: bytes, cfg: CodecConfig, device,
         p = _decode_parse(data, cfg, executor)
     with timed_span("d.device_dispatch"):
         st = _DStage()
-        st.R, st.L, st.lens_np, st.crc = p.R, p.L, p.lens_np, p.crc
+        st.R, st.lens_np, st.crc = p.R, p.lens_np, p.crc
         st.titles_np, st.tlens_np = p.titles_np, p.tlens_np
         with use_streams(streams):
             st.blobs, st.out_meta = _decode_device(p, cfg, device, codec,
                                                    buckets)
+        st.L = p.W
     return st
 
 

@@ -12,11 +12,13 @@ spans are recorded: with PHYNGSC_TIMING set, or inside trace(). When they
 are, every span() records its name, its id and its parent's, the call's
 id, the sub-block's task index (or -1), its thread, its start and end on
 time.perf_counter_ns, the thread's CPU nanoseconds over it
-(time.thread_time_ns) and whether the thread only waited in it (on a
-future or an event). Spans live in memory, one list a call; the last
-KEEP_CALLS calls are kept (recorded_calls()). A pool thread knows nothing
-of the call that submitted its work, so task() carries the submitting
-thread's call, innermost span and sub-block to it. While a torch.profiler
+(time.thread_time_ns), whether the thread only waited in it (on a
+future or an event), and the counts that count() added to it while it
+was this thread's innermost open span. Spans live in memory, one list a
+call; the last KEEP_CALLS calls are kept (recorded_calls()). A pool
+thread knows nothing of the call that submitted its work, so task()
+carries the submitting thread's call, innermost span and sub-block to
+it. While a torch.profiler
 records, each span is also a record_function range of its name (a
 user_annotation in the trace), so the trace holds the recording thread's
 stages on its own clock (the profiling thread's; every thread's under
@@ -125,6 +127,7 @@ class Span(NamedTuple):
     cpu: int        # the thread's time.thread_time_ns() over the span
     wait: bool      # the thread only waited in it
     tag: str
+    counts: dict | None = None  # count()'s sums while it was innermost
 
 
 class Call:
@@ -142,6 +145,7 @@ class _Here(threading.local):
     call = None
     parent = 0
     sub = -1
+    open = None      # the innermost open _Open
 
 
 _ON = False          # set at each outermost call's start
@@ -158,11 +162,12 @@ class _Open:
     """A span being recorded (span() while on)."""
 
     __slots__ = ("name", "wait", "sub", "tag", "done", "id", "call",
-                 "parent", "outer_sub", "t0", "c0", "rf")
+                 "parent", "outer_sub", "outer", "t0", "c0", "rf", "counts")
 
     def __init__(self, name, wait, sub, tag, done):
         self.name, self.wait, self.sub = name, wait, sub
         self.tag, self.done = tag, done
+        self.counts = None
 
     # A profiler range is entered first and left last, so that the trace's
     # ranges leave the least between a thread's consecutive spans; inside
@@ -185,19 +190,21 @@ class _Open:
         if self.sub is None:
             self.sub = self.outer_sub
         self.id = next(_IDS)
-        here.parent, here.sub = self.id, self.sub
+        self.outer = here.open
+        here.parent, here.sub, here.open = self.id, self.sub, self
         return self
 
     def __exit__(self, *exc):
         here = _HERE
         here.parent, here.sub = self.parent, self.outer_sub
+        here.open = self.outer
         c1 = time.thread_time_ns()
         t1 = time.perf_counter_ns()
         if self.call is not None:
             self.call.spans.append(Span(
                 self.name, self.id, self.parent, self.call.id, self.sub,
                 threading.get_ident(), self.t0, t1, c1 - self.c0, self.wait,
-                self.tag))
+                self.tag, self.counts))
         if self.done is not None:
             self.done(self.name, (t1 - self.t0) * 1e-9)
         if self.rf is not None:
@@ -216,6 +223,24 @@ def span(name: str, *, wait: bool = False, sub: int | None = None,
     if not _ON:
         return _NOOP
     return _Open(name, wait, sub, tag, done)
+
+
+def counting() -> bool:
+    """Whether count() records on this thread now (a caller may then skip
+    working out its counts)."""
+    return _ON and _HERE.open is not None
+
+
+def count(**counts) -> None:
+    """Add each count to this thread's innermost open span (its Span's
+    counts). Off, or with no span open, nothing."""
+    sp = _HERE.open if _ON else None
+    if sp is None:
+        return
+    if sp.counts is None:
+        sp.counts = {}
+    for k, v in counts.items():
+        sp.counts[k] = sp.counts.get(k, 0) + v
 
 
 class _CallScope:

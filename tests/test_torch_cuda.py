@@ -424,7 +424,11 @@ def test_odd_g_on_card_matches_cpu(cuda):
 
 def test_lanes_past_2_16_words_on_card(cuda):
     """A short first read keeps G = 64 under auto_substream, so a lane of
-    63 reads of 5,400 bp holds more than 2^16 quality words."""
+    63 reads of 5,400 bp holds more than 2^16 quality words. K5 builds
+    both planes once a replay, and once more in the eager run before a
+    key's first capture."""
+    from phyngsc_tpu_torch import graphs
+
     rng = np.random.default_rng(71)
     data = b"".join(
         b"@r%d\n%s\n+\n%s\n" % (
@@ -434,8 +438,10 @@ def test_lanes_past_2_16_words_on_card(cuda):
     blob = compress_bytes(data, CodecConfig(), 1, device=cuda)
     assert blob == compress_bytes(data, CodecConfig(), 1, device="cpu")
     before = kernels.LAUNCHES["k5_densify"]
+    eager = graphs.stats().get("decode_walk_fused", {}).get("eager", 0)
     assert decompress_bytes(blob, device=cuda) == data
-    assert kernels.LAUNCHES["k5_densify"] == before + 2
+    warmed = graphs.stats()["decode_walk_fused"]["eager"] - eager
+    assert kernels.LAUNCHES["k5_densify"] == before + 2 * (1 + warmed)
 
 
 def test_round_trip_on_card_matches_cpu(cuda):
@@ -1387,9 +1393,9 @@ def _smoke_corpus(name: str) -> bytes:
 def test_graph_replays_equal_the_eager_steps(cuda, monkeypatch, corpus):
     """The first sub-block of each chip_smoke corpus, as compress_bytes
     cuts it: its stages run directly (graphs.direct), then three times
-    through a fresh runner (stage A warms and captures, stages B and the
-    decode run eagerly; then captures; then replays only): every output of
-    every run equals the direct steps' bit for bit."""
+    through a fresh runner (each stage warms, captures and replays; then
+    replays only): every output of every run equals the direct steps' bit
+    for bit."""
     from phyngsc_tpu_torch import graphs
     from phyngsc_tpu_torch.pipeline import compress
     from phyngsc_tpu_torch.utils.shapes import BucketCtx
@@ -1408,7 +1414,7 @@ def test_graph_replays_equal_the_eager_steps(cuda, monkeypatch, corpus):
             np.testing.assert_array_equal(g, w)
     st = runner.stats()
     assert (st["analyze_all"]["replays"], st["encode_all"]["replays"],
-            st["decode_walk_fused"]["replays"]) == (3, 2, 2)
+            st["decode_walk_fused"]["replays"]) == (3, 3, 3)
 
 
 @pytest.mark.parametrize("case", [
@@ -1444,15 +1450,15 @@ def test_graphs_replay_over_stale_buffers(cuda, monkeypatch, case):
     st = runner.stats()
     assert st["analyze_all"]["replays"] == 3
     assert st["decode_walk_fused"] == {"eager": 1, "captures": 1,
-                                       "replays": 2, "keys": 1}
+                                       "replays": 3, "keys": 1}
 
 
 def test_graph_counts_of_a_run(cuda, monkeypatch):
-    """One ERR005195 round trip through a fresh runner: stage A replays on
-    every sub-block (warmed, then captured, at each key's first sight),
-    stage B and the decode on every sub-block but one a key; K6 counts one
-    launch per decoded sub-block, K5 two, under replay; no plain version
-    runs on the card; the graphs' bytes are counted."""
+    """One ERR005195 round trip through a fresh runner: every stage replays
+    on every sub-block (warmed, then captured, at each key's first
+    sight); K6 counts one launch per replay and per key's eager first
+    run, K5 two; no plain version runs on the card; the graphs' bytes are
+    counted."""
     data = synthesize_fastq(400000, read_len=36, seed=5)
     cfg = CodecConfig(subblock_input_bytes=4 << 20)
     runner = _fresh_runner(monkeypatch)
@@ -1462,12 +1468,13 @@ def test_graph_counts_of_a_run(cuda, monkeypatch):
     assert n >= 8
     kernels.reset_counts()
     assert decompress_bytes(blob, cfg, device=cuda) == data
-    assert kernels.LAUNCHES["k6_tables"] == n
-    assert kernels.LAUNCHES["k5_densify"] == 2 * n
-    assert not any(kernels.PLAIN_ON_CUDA.values())
     st = runner.stats()
     a, b, d = (st[s] for s in ("analyze_all", "encode_all",
                                "decode_walk_fused"))
+    # each replay, and each key's eager first run before its capture
+    assert kernels.LAUNCHES["k6_tables"] == n + d["keys"]
+    assert kernels.LAUNCHES["k5_densify"] == 2 * (n + d["keys"])
+    assert not any(kernels.PLAIN_ON_CUDA.values())
     # stage A's key: one, or two where a sub-block's exceptions take the
     # next bucket (transfer._exc_bucket)
     assert a["replays"] == n and a["eager"] == a["keys"] <= 2
@@ -1477,26 +1484,76 @@ def test_graph_counts_of_a_run(cuda, monkeypatch):
     assert st["graph_bytes"] > 0 and st["evictions"] == 0
 
 
+def test_eviction_gives_back_the_pools(cuda, monkeypatch):
+    """A runner with a budget of one byte evicts every instance at its
+    release, across the long-read keys of torch_long_reads.LONGEST (plane
+    widths 2,560 to 65,536): each sub-block's payload equals the CPU's and
+    decodes to its records; the evictions give back every byte the
+    captures counted (freed_bytes is their sum: the pools of the stages
+    left nothing behind); and torch.cuda.memory_reserved() after 20
+    evictions is no more than after the first, plus one instance."""
+    from phyngsc_tpu_torch import graphs
+    from phyngsc_tpu_torch.pipeline import compress, subblock
+    from torch_long_reads import CFG, LONGEST, long_reads
+
+    data = long_reads(LONGEST)
+    buf = np.frombuffer(data, np.uint8)
+    cfg = compress.resolve_substream(buf, CodecConfig(**CFG))
+    tasks = [idx for _, idx in compress.iter_subblock_tasks(
+        buf, compress.partition_regions(buf, 1, cfg), cfg)]
+    assert len(tasks) == 5
+    want = [subblock.encode_subblock(buf, idx, cfg, "cpu") for idx in tasks]
+    runner = graphs.Runner(budget=1)
+    monkeypatch.setattr(graphs, "_RUNNER", runner)
+    counted = []
+    capture = runner._capture
+
+    def spy(ls, fn):
+        before = runner.stats()["graph_bytes"]
+        capture(ls, fn)
+        counted.append(runner.stats()["graph_bytes"] - before)
+
+    monkeypatch.setattr(runner, "_capture", spy)
+    first = None
+    while runner.stats()["evictions"] < 20:
+        for idx, payload in zip(tasks, want):
+            got = subblock.encode_subblock(buf, idx, cfg, cuda)
+            assert got == payload
+            records = bytes(buf[int(idx.title_start[0]):
+                                int(idx.qual_end[-1]) + 1])
+            assert subblock.decode_subblock(got, cfg, cuda) == records
+            torch.cuda.synchronize()
+            if first is None and runner.stats()["evictions"]:
+                first = torch.cuda.memory_reserved()
+    st = runner.stats()
+    assert st["evictions"] >= 20 and st["graph_bytes"] == 0
+    assert st["evictions"] == sum(v["captures"] for v in st.values()
+                                  if isinstance(v, dict))
+    assert st["freed_bytes"] == sum(counted) > 0
+    assert torch.cuda.memory_reserved() <= first + st["largest_bytes"]
+
+
 def test_failed_capture_raises(cuda, monkeypatch):
-    """A step that synchronizes while it is captured raises; nothing runs
-    it eagerly instead, and the card and the runner work on after it."""
+    """A step that synchronizes while it is captured raises at its first
+    sight, after the eager run that precedes the capture; nothing runs it
+    eagerly instead, and the card and the runner work on after it."""
     from phyngsc_tpu_torch import graphs
 
     runner = _fresh_runner(monkeypatch)
     x = torch.arange(16, device=cuda)
+    runs = []
 
     def bad():
         y = x * 2
+        runs.append(1)
         torch.cuda.synchronize()
         return y
 
     ls = runner.lease(cuda, "probe", 1, 16)
-    assert torch.equal(ls.run(bad), x * 2)  # the eager first sight
-    ls.release()
-    ls = runner.lease(cuda, "probe", 1, 16)
     with pytest.raises(Exception):
         ls.run(bad)
     ls.release(ok=False)
+    assert len(runs) == 2  # the eager first sight, then the capture
     st = runner.stats()["probe"]
     assert st == {"eager": 1, "captures": 0, "replays": 0, "keys": 1}
     ls = runner.lease(cuda, "probe", 1, 16)
