@@ -44,7 +44,7 @@ Phases (any failure exits non-zero):
      runs (index, gather, packers, table build, title encode and decode,
      the decode's tail, reassembly); each stage again at T threads, at 1
      thread and on the numpy versions (PHYNGSC_NO_NATIVE=1), outputs equal;
-     each of the 14 entry points' own calls of that run at T and at 1
+     each of the 12 entry points' own calls of that run at T and at 1
      thread, equal; the ms of each;
   3. the main path: compress_bytes -> decompress_bytes with device="cuda" on
      --mb MB of synthetic ERR005195 36 bp reads, an SRR-style 76 bp corpus
@@ -819,8 +819,7 @@ HOST_ENTRIES = {
     "byte_scan": "pack_seq_np", "pack_fixed": "pack_seq_np",
     "find_non_acgt": "pack_seq_np",
     "quality_tables": "build_tables_adaptive",
-    "title_scan": "title.encode", "numeric_stats": "title.encode",
-    "gather": "title.encode", "title_walk": "title.decode",
+    "title_encode": "title.encode", "title_walk": "title.decode",
     "title_assemble": "title.decode",
     "unpack_substreams": "title.decode, title_walk off",
     "decode_tail": "_unpack_out", "fastq_assemble": "_reassemble"}
@@ -849,18 +848,6 @@ def same(a, b, exact=True) -> bool:
         return (a.shape == b.shape and (not exact or a.dtype == b.dtype)
                 and np.array_equal(a, b))
     return a == b
-
-
-def scanned(scan: dict) -> dict:
-    """title_scan's outputs with the cells it leaves unwritten (past each
-    row's separators and fields) zeroed."""
-    ns = scan["nsep"][:, None]
-    out = dict(scan)
-    for k, n in (("sep_pos", ns), ("sep_chars", ns), ("values", ns + 1),
-                 ("numeric_ok", ns + 1)):
-        cols = np.arange(scan[k].shape[1])[None, :]
-        out[k] = np.where(cols < n, scan[k], 0)
-    return out
 
 
 def stage_output(name: str, out):
@@ -994,9 +981,6 @@ def phase_host_runtime(dev, T: int) -> list:
         got_1, ms_1 = replay(), host_ms(replay, 5)
         native.set_threads(T)
         got_t, ms_t = replay(), host_ms(replay, 5)
-        if entry == "title_scan":
-            got_1, got_t = [scanned(x) for x in got_1], [scanned(x)
-                                                         for x in got_t]
         require(same(got_t, got_1),
                 f"host runtime {entry}: {T} threads and 1 thread differ")
         s_t, s_1, s_np = stage_ms[stage]

@@ -136,14 +136,6 @@ def field_content(titles: np.ndarray, tok: Tokenized, f: int) -> np.ndarray:
     W = int(tok.lens[:, f].max()) if R else 0
     if W == 0:
         return np.zeros((R, 0), np.uint8)
-    from phyngsc_tpu_torch.utils import native
-
-    TL = titles.shape[1]
-    flat_starts = np.arange(R, dtype=np.int64) * TL + tok.starts[:, f]
-    out = native.gather(np.ascontiguousarray(titles).reshape(-1), flat_starts,
-                        tok.lens[:, f], W)
-    if out is not None:
-        return out
     cols = tok.starts[:, f : f + 1] + np.arange(W, dtype=np.int32)[None, :]
     mask = np.arange(W)[None, :] < tok.lens[:, f : f + 1]
     out = titles[np.arange(R)[:, None], np.clip(cols, 0, titles.shape[1] - 1)]
@@ -245,119 +237,30 @@ def plan_numeric(content: np.ndarray, flens: np.ndarray,
     return _numeric_plan_from_values(vals, max_code_len)
 
 
-def plan_numeric_scan(vals: np.ndarray, ok: np.ndarray,
-                      max_code_len: int = 12) -> Optional[NumericPlan]:
-    """Fast path from the native title scan (values + validity pre-parsed)."""
-    if vals.shape[0] == 0 or not bool(np.all(ok)):
-        return None
-    return _numeric_plan_from_values(vals, max_code_len)
-
-
-class _NumPre:
-    """Batched per-field numeric statistics: the mode planners' reductions
-    (min/max/diff/block constancy) computed for ALL fields in one matrix
-    pass each instead of ~10 strided passes per field — title analyze sits
-    on the compress critical path at scale (VERDICT r4 next #4). Plans are
-    bit-identical to the per-field path (same reductions, same padding)."""
-
-    __slots__ = ("vmin", "vmax", "dT", "dmin", "dmax",
-                 "cnt", "const", "dconst", "first_d", "nB", "blocks")
-
-
-def _numeric_pre(V: np.ndarray) -> _NumPre:
-    """One field-major transpose, then every reduction runs over contiguous
-    rows (axis-0 reductions on the (R, F) layout stride F*8 bytes and run
-    ~5x slower). Block statistics reproduce the padded per-field path
-    exactly: padding repeats the last value, so padded comparisons are
-    always-equal no-ops."""
-    R, F = V.shape
-    pre = _NumPre()
-    if R >= 2:
-        from phyngsc_tpu_torch.utils import native
-
-        B = BLOCK_RECORDS
-        ns = native.numeric_stats(V, B)
-        if ns is not None:
-            pre.vmin, pre.vmax = ns["vmin"], ns["vmax"]
-            pre.dmin, pre.dmax = ns["dmin"], ns["dmax"]
-            pre.dT = None            # deltas rebuilt lazily per NUM_HUF field
-            pre.blocks = True
-            nB = (R + B - 1) // B
-            pre.nB = nB
-            pre.cnt = np.clip(np.minimum(np.arange(nB) * -B + R, B), 1, B)
-            pre.const = ns["const"]
-            pre.dconst = ns["dconst"]
-            pre.first_d = ns["first_d"]
-            return pre
-    VT = np.ascontiguousarray(V.T)                               # (F, R)
-    pre.vmin = VT.min(axis=1)
-    pre.vmax = VT.max(axis=1)
-    pre.dT = None
-    pre.blocks = False
-    if R < 2:
-        return pre
-    dT = np.diff(VT, axis=1)                                     # (F, R-1)
-    pre.dT = dT
-    pre.dmin = dT.min(axis=1)
-    pre.dmax = dT.max(axis=1)
-    B = BLOCK_RECORDS
-    nB = (R + B - 1) // B
-    pre.nB = nB
-    pre.blocks = True
-    cnt = np.clip(np.minimum(np.arange(nB) * -B + R, B), 1, B)
-    pre.cnt = cnt
-    pad = nB * B - R
-    V3 = np.concatenate([VT, np.repeat(VT[:, -1:], pad, axis=1)],
-                        axis=1).reshape(F, nB, B)
-    pre.const = np.all(V3 == V3[:, :, :1], axis=2).T             # (nB, F)
-    D3 = np.diff(V3, axis=2)                                     # (F,nB,B-1)
-    first_d = D3[:, :, 0]
-    dmask = np.arange(1, B)[None, None, :] < cnt[None, :, None]
-    pre.first_d = first_d.T
-    pre.dconst = (np.all((D3 == first_d[:, :, None]) | ~dmask, axis=2)
-                  & (cnt >= 2)[None, :]).T
-    return pre
-
-
-def _numeric_plan_from_values(vals: np.ndarray, max_code_len: int = 12,
-                              pre: Optional[_NumPre] = None,
-                              f: int = 0) -> NumericPlan:
+def _numeric_plan_from_values(vals: np.ndarray,
+                              max_code_len: int = 12) -> NumericPlan:
     """Pick the cheapest numeric mode by EXACT emitted bits — every
     candidate's total includes its full header as write_header serializes
     it (kind 1 + mode 1 + width 7 = 9 common bits, 64-bit base/first words,
     exact store_table cost), so borderline fields can never flip to a mode
-    that actually emits more (VERDICT r2 weak #6). pre/f: batched stats
-    from _numeric_pre (column f), same values as the local reductions."""
+    that actually emits more (VERDICT r2 weak #6)."""
     R = vals.shape[0]
-    if pre is not None:
-        vmin, vmax = int(pre.vmin[f]), int(pre.vmax[f])
-    else:
-        vmin, vmax = int(vals.min()), int(vals.max())
+    vmin, vmax = int(vals.min()), int(vals.max())
     width_v = bit_length(vmax - vmin) if vmax > vmin else 0
     best = NumericPlan(KIND_NUMERIC, NUM_VALUE, width_v, vmin)
     best_bits = 9 + 64 + R * width_v
     d_fn = None
     if R >= 2:
-        if pre is not None:
-            dmin, dmax = int(pre.dmin[f]), int(pre.dmax[f])
-            if pre.dT is not None:
-                dT = pre.dT
-                d_fn = lambda: dT[f]                          # noqa: E731
-            else:
-                # native pre keeps no delta rows; NUM_HUF-eligible fields
-                # (small delta range) rebuild them from the column
-                d_fn = lambda: np.diff(vals)                  # noqa: E731
-        else:
-            d_arr = np.diff(vals)
-            dmin, dmax = int(d_arr.min()), int(d_arr.max())
-            d_fn = lambda: d_arr                              # noqa: E731
+        d_arr = np.diff(vals)
+        dmin, dmax = int(d_arr.min()), int(d_arr.max())
+        d_fn = lambda: d_arr                                  # noqa: E731
         width_d = bit_length(dmax - dmin) if dmax > dmin else 0
         bits_d = 9 + 128 + (R - 1) * width_d
         if bits_d < best_bits:
             best = NumericPlan(KIND_NUMERIC, NUM_DELTA, width_d, dmin,
                                int(vals[0]))
             best_bits = bits_d
-    blk = _plan_numeric_block(vals, vmin, width_v, pre, f)
+    blk = _plan_numeric_block(vals, vmin, width_v)
     if blk is not None and blk[1] < best_bits:
         best, best_bits = blk
     huf = _plan_numeric_huf(vals, d_fn, dmin if d_fn else 0,
@@ -421,8 +324,7 @@ def _plan_numeric_huf(vals, d_fn, dmin: int, dmax: int, vmin: int, vmax: int,
     return best
 
 
-def _plan_numeric_block(vals: np.ndarray, vmin: int, width_v: int,
-                        pre: Optional[_NumPre] = None, f: int = 0):
+def _plan_numeric_block(vals: np.ndarray, vmin: int, width_v: int):
     """Per-32-record-block descriptors (NUM_BLOCK): returns (plan, bits) or
     None. Each block is constant (one value), delta-constant (first + step)
     or raw (count × width_v); 2 flag bits per block. Wins on tile-sorted
@@ -431,22 +333,16 @@ def _plan_numeric_block(vals: np.ndarray, vmin: int, width_v: int,
     B = BLOCK_RECORDS
     if R < 2 or width_v == 0:
         return None
-    if pre is not None and pre.blocks:
-        nB, cnt = pre.nB, pre.cnt
-        const = pre.const[:, f]
-        first_d = pre.first_d[:, f]
-        dconst = pre.dconst[:, f]
-    else:
-        nB = (R + B - 1) // B
-        pad = nB * B - R
-        V = np.concatenate([vals, np.repeat(vals[-1:], pad)]).reshape(nB, B)
-        cnt = np.minimum(np.arange(nB) * -B + R, B)  # records in each block
-        cnt = np.clip(cnt, 1, B)
-        const = np.all(V == V[:, :1], axis=1)
-        D = np.diff(V, axis=1)                    # padded tail deltas are 0
-        dmask = np.arange(1, B)[None, :] < cnt[:, None]
-        first_d = D[:, 0]
-        dconst = np.all((D == first_d[:, None]) | ~dmask, axis=1) & (cnt >= 2)
+    nB = (R + B - 1) // B
+    pad = nB * B - R
+    V = np.concatenate([vals, np.repeat(vals[-1:], pad)]).reshape(nB, B)
+    cnt = np.minimum(np.arange(nB) * -B + R, B)  # records in each block
+    cnt = np.clip(cnt, 1, B)
+    const = np.all(V == V[:, :1], axis=1)
+    D = np.diff(V, axis=1)                    # padded tail deltas are 0
+    dmask = np.arange(1, B)[None, :] < cnt[:, None]
+    first_d = D[:, 0]
+    dconst = np.all((D == first_d[:, None]) | ~dmask, axis=1) & (cnt >= 2)
     zz = np.where(first_d < 0, (np.abs(first_d) << 1) - 1, first_d << 1)
     use_d = dconst & ~const
     wzd = bit_length(int(zz[use_d].max())) if bool(use_d.any()) else 0
@@ -632,13 +528,10 @@ class TitlePlan:
 
 @dataclasses.dataclass
 class TitleContext:
-    """Tokenization (+ native numeric pre-parse) computed once per sub-block
-    and shared by analyze and encode. Field content matrices are gathered
-    lazily — numeric fields never need them."""
+    """Tokenization computed once per sub-block and shared by analyze and
+    encode. Field content matrices are gathered lazily."""
     titles: np.ndarray
     tok: Tokenized
-    scan_values: Optional[np.ndarray] = None      # (R, F) int64
-    scan_numeric_ok: Optional[np.ndarray] = None  # (R, F) bool
     _contents: dict = dataclasses.field(default_factory=dict)
 
     def content(self, f: int) -> np.ndarray:
@@ -649,39 +542,6 @@ class TitleContext:
 
     @classmethod
     def build(cls, titles: np.ndarray, tlens: np.ndarray) -> "TitleContext":
-        from phyngsc_tpu_torch.utils import native
-
-        R = titles.shape[0]
-        scan = native.title_scan(titles, tlens, SEPARATORS) if R else None
-        if scan is not None and np.all(scan["nsep"] == scan["nsep"][0]) \
-                and int(scan["nsep"][0]) < scan["sep_pos"].shape[1]:
-            ns = int(scan["nsep"][0])
-            raw_ok = True
-            if ns > 0:
-                chars = scan["sep_chars"][:, :ns]
-                raw_ok = bool(np.all(chars == chars[0]))
-            if raw_ok and ns > 0:
-                F = ns + 1
-                cols = scan["sep_pos"][:, :ns]
-                starts = np.zeros((R, F), np.int32)
-                starts[:, 1:] = cols + 1
-                ends = np.concatenate(
-                    [cols, tlens.astype(np.int32)[:, None]], axis=1)
-                tok = Tokenized(F, scan["sep_chars"][0, :ns].copy(),
-                                starts, ends - starts)
-                return cls(titles, tok, scan["values"][:, :F],
-                           scan["numeric_ok"][:, :F])
-            if raw_ok and ns == 0:
-                tok = Tokenized(1, np.zeros(0, np.uint8),
-                                np.zeros((R, 1), np.int32),
-                                tlens.astype(np.int32)[:, None])
-                return cls(titles, tok, scan["values"][:, :1],
-                           scan["numeric_ok"][:, :1])
-            # inconsistent schema → raw fallback (single whole-title field)
-            tok = Tokenized(1, np.zeros(0, np.uint8),
-                            np.zeros((R, 1), np.int32),
-                            tlens.astype(np.int32)[:, None])
-            return cls(titles, tok)
         return cls(titles, tokenize(titles, tlens))
 
 
@@ -689,22 +549,9 @@ def analyze(titles: np.ndarray, tlens: np.ndarray, cfg: CodecConfig,
             ctx: Optional[TitleContext] = None) -> TitlePlan:
     ctx = ctx or TitleContext.build(titles, tlens)
     fields = []
-    R = titles.shape[0]
-    pre = allok = None
-    if ctx.scan_numeric_ok is not None and R:
-        allok = np.all(ctx.scan_numeric_ok, axis=0)      # (F,) one pass
-        if bool(np.any(allok[: ctx.tok.n_fields])):
-            pre = _numeric_pre(ctx.scan_values)
     for f in range(ctx.tok.n_fields):
         flens = ctx.tok.lens[:, f]
-        if ctx.scan_numeric_ok is not None:
-            # batched fast path: same decision as plan_numeric_scan, with
-            # the reductions shared across fields (_NumPre)
-            p = (_numeric_plan_from_values(ctx.scan_values[:, f],
-                                           cfg.max_code_len, pre, f)
-                 if allok is not None and bool(allok[f]) else None)
-        else:
-            p = plan_numeric(ctx.content(f), flens, cfg.max_code_len)
+        p = plan_numeric(ctx.content(f), flens, cfg.max_code_len)
         if p is None:
             p = plan_char(ctx.content(f), flens, cfg)
         fields.append(p)
@@ -736,10 +583,7 @@ def _fixed_payload(plan: TitlePlan, ctx: TitleContext, R: int) -> np.ndarray:
                 # constant / block-descriptor / huffman-coded fields pay no
                 # fixed-stream payload (NUM_HUF rides the char walk)
                 continue
-            if ctx.scan_values is not None:
-                vals = ctx.scan_values[:, f]
-            else:
-                vals = _numeric_values(ctx.content(f), tok.lens[:, f])
+            vals = _numeric_values(ctx.content(f), tok.lens[:, f])
             if p.mode == NUM_VALUE:
                 enc = vals - p.base
             else:
@@ -768,10 +612,7 @@ def _char_symbols(plan: TitlePlan, ctx: TitleContext, R: int):
             if p.mode != NUM_HUF:
                 continue
             # one shared-tree symbol per record: (value|delta) - base
-            if ctx.scan_values is not None:
-                vals = ctx.scan_values[:, f]
-            else:
-                vals = _numeric_values(ctx.content(f), tok.lens[:, f])
+            vals = _numeric_values(ctx.content(f), tok.lens[:, f])
             if p.hsub == NUM_VALUE:
                 enc = (vals - p.base).astype(np.int64)
             else:
@@ -811,17 +652,66 @@ class EncodedTitle:
     fixed_words: np.ndarray     # uint32
     char_words: np.ndarray      # uint32
     char_sub_n_words: np.ndarray
+    native: bool = False        # encoded by the host runtime's one call
 
     def byte_size(self) -> int:
         return 4 * (self.fixed_words.shape[0] + self.char_words.shape[0])
 
 
-def encode(titles: np.ndarray, tlens: np.ndarray, cfg: CodecConfig,
-           plan: Optional[TitlePlan] = None) -> EncodedTitle:
+def _from_runtime(got: dict) -> EncodedTitle:
+    """native.title_encode's arrays as the plan and streams encode gives."""
+    at = dict.fromkeys(got, 0)
+
+    def take(name: str, n: int) -> np.ndarray:
+        at[name] += n
+        return got[name][at[name] - n:at[name]]
+
+    fields = []
+    for row in got["fields"].tolist():
+        (kind, mode, width, base, first, dwidth, hsub, alpha, huf_sing,
+         max_len, const_len, len_width, n_trees, n_blocks, n_raw,
+         n_bconst) = row
+        if kind == KIND_CHAR:
+            fields.append(CharPlan(
+                kind, max_len, const_len, len_width,
+                take("tree_lens", n_trees), take("tree_sing", n_trees),
+                take("blk_const", n_bconst).astype(bool) if n_bconst
+                else None))
+            continue
+        p = NumericPlan(kind, mode, width, base, first, dwidth)
+        if mode == NUM_BLOCK:
+            p.blk_flags = take("blk_flags", n_blocks)
+            p.blk_a = take("blk_a", n_blocks)
+            p.blk_d = take("blk_d", n_blocks)
+            p.blk_raw = take("blk_raw", n_raw)
+        elif mode == NUM_HUF:
+            p.hsub, p.alpha, p.huf_sing = hsub, alpha, huf_sing
+            p.huf_lens = take("huf_lens", alpha)
+        fields.append(p)
+    F = len(fields)
+    tok = Tokenized(F, got["seps"], np.zeros((0, F), np.int32),
+                    np.zeros((0, F), np.int32))
+    return EncodedTitle(TitlePlan(tok, fields), got["fixed_words"],
+                        got["char_words"], got["sub_n_words"], native=True)
+
+
+def encode(titles: np.ndarray, tlens: np.ndarray,
+           cfg: CodecConfig) -> EncodedTitle:
+    """The title streams of R records: one host runtime call
+    (native.title_encode) where it runs, else the numpy version below
+    (PHYNGSC_NO_NATIVE=1), the same plan and bytes."""
     R = titles.shape[0]
+    if R:
+        from phyngsc_tpu_torch.utils import native
+
+        G = cfg.records_per_substream
+        got = native.title_encode(titles, tlens, SEPARATORS, cfg.max_code_len,
+                                  cfg.max_stat_positions, G,
+                                  bucket_records(R, G))
+        if got is not None:
+            return _from_runtime(got)
     ctx = TitleContext.build(titles, tlens)
-    if plan is None:
-        plan = analyze(titles, tlens, cfg, ctx)
+    plan = analyze(titles, tlens, cfg, ctx)
 
     # fixed stream: constant stride → offsets are an affine map. Shapes are
     # bucketed over the record axis (utils/shapes.py) so every sub-block

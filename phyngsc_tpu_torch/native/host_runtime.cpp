@@ -6,9 +6,10 @@
 // phyngsc::parallel_for on the std::thread pool of host_threads.h, and each
 // reduction keeps one partial a chunk, combined after the join, so results
 // do not depend on the thread count. phyngsc_threads / phyngsc_set_threads
-// read and set that count. phyngsc_quality_tables has no twin there: it is
-// the port's stage B quality table search (models/quality.py), on the
-// calling thread.
+// read and set that count. phyngsc_quality_tables and phyngsc_title_encode
+// have no twin there: the port's stage B quality table search
+// (models/quality.py), on the calling thread, and the title stream's whole
+// encode (models/title.py).
 //
 // The reference spends its host cycles in OpenMP byte scans over the read
 // buffer (record indexing, phyNGSC.cpp:254-331) and in Huffman tree builds
@@ -19,6 +20,7 @@
 //   phyngsc_gather         — padded (R, W) matrix gather for device batching
 //   phyngsc_huffman_lengths— batched length-limited Huffman (C8 host side)
 //   phyngsc_quality_tables — the quality stream's whole table search
+//   phyngsc_title_encode   — the title stream's whole encode
 //
 // Build: phyngsc_tpu_torch/host_runtime.py (g++ -O3 -march=native -fPIC
 // -std=c++17 -pthread -shared) into build/host/. PHYNGSC_NO_NATIVE=1 makes
@@ -28,6 +30,7 @@
 #include <cmath>
 #include <cstdint>
 #include <cstring>
+#include <memory>
 #include <vector>
 
 #include "host_threads.h"
@@ -38,7 +41,6 @@ constexpr int64_t ROWS_GRAIN = 1024;       // records of a row loop
 constexpr int64_t BYTES_GRAIN = 1 << 16;   // bytes or elements of a flat loop
 constexpr int64_t WORDS_GRAIN = 1 << 14;   // packed words
 constexpr int64_t LANES_GRAIN = 4;         // substreams of a decode walk
-constexpr int64_t BLOCKS_GRAIN = 64;       // numeric_stats record blocks
 }  // namespace
 
 extern "C" {
@@ -329,19 +331,45 @@ bool build_set(const int64_t *counts, int32_t T, int32_t A, int32_t max_len,
   return true;
 }
 
+// _table_cost_bits of models/quality.py and models/title.py: one tree's
+// huffman.store_table bits.
+int64_t table_cost_bits(const uint8_t *lens, int32_t A, int32_t singleton) {
+  if (singleton >= 0) return 32;
+  int64_t n = 0;
+  for (int32_t a = 0; a < A; ++a) n += lens[a] != 0;
+  return n == 0 ? 16 : n == 1 ? 32 : 16 + 8 * ((A + 7) / 8) + 4 * n;
+}
+
 // quality._table_cost_bits summed over the set's trees.
 int64_t tables_bits(const TableSet &s, int32_t A) {
   int64_t bits = 0;
-  for (int32_t t = 0; t < s.T; ++t) {
-    if (s.singletons[t] >= 0) {
-      bits += 32;
+  for (int32_t t = 0; t < s.T; ++t)
+    bits += table_cost_bits(&s.lens[(size_t)t * A], A, s.singletons[t]);
+  return bits;
+}
+
+// One tree's canonical codes (ops/huffman.py canonical_codes): in (length,
+// symbol) order each code left-aligns at the Kraft sum of its
+// predecessors, code = (sum 2^(B - len_j)) >> (B - len), for any B at
+// least the tree's longest length.
+void canonical_row(const uint8_t *l, int32_t A, int32_t B, uint32_t *c) {
+  int64_t start[33] = {0};  // each length's first Kraft offset
+  for (int32_t a = 0; a < A; ++a)
+    if (l[a]) start[l[a]] += int64_t(1) << (B - l[a]);
+  int64_t acc = 0;
+  for (int32_t n = 1; n <= B; ++n) {
+    const int64_t w = start[n];
+    start[n] = acc;
+    acc += w;
+  }
+  for (int32_t a = 0; a < A; ++a) {
+    if (!l[a]) {
+      c[a] = 0;
       continue;
     }
-    int64_t n = 0;
-    for (int32_t a = 0; a < A; ++a) n += s.lens[(size_t)t * A + a] != 0;
-    bits += n == 0 ? 16 : n == 1 ? 32 : 16 + 8 * ((A + 7) / 8) + 4 * n;
+    c[a] = (uint32_t)(start[l[a]] >> (B - l[a]));
+    start[l[a]] += int64_t(1) << (B - l[a]);
   }
-  return bits;
 }
 
 // sum over the T0 rows of counts x the lengths of row gid(t) of the set,
@@ -433,32 +461,11 @@ int32_t phyngsc_quality_tables(const int64_t *counts, int32_t T0, int32_t A,
       }
     }
   }
-  // canonical codes (ops/huffman.py canonical_codes): in (length, symbol)
-  // order each code left-aligns at the Kraft sum of its predecessors,
-  // code = (sum 2^(B - len_j)) >> (B - len), B the set's longest length
+  // canonical codes, B the set's longest length
   const int32_t B = (int64_t)T * A > 0
       ? *std::max_element(tables.lens.begin(), tables.lens.end()) : 0;
-  for (int32_t t = 0; t < T; ++t) {
-    const uint8_t *l = &tables.lens[(size_t)t * A];
-    int64_t start[33] = {0};  // each length's first Kraft offset
-    for (int32_t a = 0; a < A; ++a)
-      if (l[a]) start[l[a]] += int64_t(1) << (B - l[a]);
-    int64_t acc = 0;
-    for (int32_t n = 1; n <= B; ++n) {
-      const int64_t w = start[n];
-      start[n] = acc;
-      acc += w;
-    }
-    uint32_t *c = codes + (size_t)t * A;
-    for (int32_t a = 0; a < A; ++a) {
-      if (!l[a]) {
-        c[a] = 0;
-        continue;
-      }
-      c[a] = (uint32_t)(start[l[a]] >> (B - l[a]));
-      start[l[a]] += int64_t(1) << (B - l[a]);
-    }
-  }
+  for (int32_t t = 0; t < T; ++t)
+    canonical_row(&tables.lens[(size_t)t * A], A, B, codes + (size_t)t * A);
   std::copy(tables.lens.begin(), tables.lens.end(), lens);
   std::copy(tables.singletons.begin(), tables.singletons.end(), singletons);
   info[0] = T;
@@ -502,68 +509,57 @@ void phyngsc_unpack_substreams(const uint32_t *words, int64_t n_words,
   });
 }
 
-// Single-pass title scan: separator positions/chars plus per-field canonical
-// numeric parse (<= 18 digits, no leading zero unless "0"). Replaces the
-// tokenize + per-field digit loops of the title model (models/title.py) —
-// the dominant host cost after everything else moved to device.
-// sep_tab: 256-entry 0/1 separator table. Field f of record r spans
-// [prev_sep+1, sep_pos[r,f]).
-void phyngsc_title_scan(const uint8_t *titles, const int32_t *tlens,
-                        int64_t R, int64_t TL, const uint8_t *sep_tab,
-                        int32_t max_seps,
-                        int32_t *nsep,        // (R,)
-                        int32_t *sep_pos,     // (R, max_seps)
-                        uint8_t *sep_chars,   // (R, max_seps)
-                        int64_t *values,      // (R, max_seps+1)
-                        uint8_t *numeric_ok   // (R, max_seps+1)
-) {
-  phyngsc::parallel_for(R, ROWS_GRAIN, [&](int, int64_t r0, int64_t r1) {
-    for (int64_t r = r0; r < r1; ++r) {
-      const uint8_t *t = titles + r * TL;
-      const int32_t n = tlens[r];
-      int32_t ns = 0;
-      int32_t field = 0;
-      int64_t val = 0;
-      int32_t digits = 0;
-      bool all_digits = true;
-      bool leading_zero = false;
-      int64_t *v = values + r * (max_seps + 1);
-      uint8_t *ok = numeric_ok + r * (max_seps + 1);
-      auto close_field = [&]() {
-        if (field <= max_seps) {
-          bool good = all_digits && digits >= 1 && digits <= 18 &&
-                      !(leading_zero && digits > 1);
-          v[field] = good ? val : 0;
-          ok[field] = good ? 1 : 0;
-        }
-        val = 0;
-        digits = 0;
-        all_digits = true;
-        leading_zero = false;
-        ++field;
-      };
-      for (int32_t i = 0; i < n; ++i) {
-        uint8_t c = t[i];
-        if (sep_tab[c]) {
-          close_field();
-          if (ns < max_seps) {
-            sep_pos[r * max_seps + ns] = i;
-            sep_chars[r * max_seps + ns] = c;
-          }
-          ++ns;
-        } else if (c >= '0' && c <= '9') {
-          if (digits == 0 && c == '0') leading_zero = true;
-          if (digits < 19) val = val * 10 + (c - '0');
-          ++digits;
-        } else {
-          all_digits = false;
-        }
-      }
-      close_field();
-      nsep[r] = ns;
+namespace {
+
+// One title's scan (phyngsc_title_encode's schema and numeric parse):
+// writes the first max_seps separators' positions and chars, the first
+// max_seps + 1 fields' values and numeric flags (canonical numbers only:
+// <= 18 digits, no leading zero unless "0"), and returns the title's
+// separator count.
+int32_t scan_title(const uint8_t *t, int32_t n, const uint8_t *sep_tab,
+                   int32_t max_seps, int32_t *sep_pos, uint8_t *sep_chars,
+                   int64_t *v, uint8_t *ok) {
+  int32_t ns = 0;
+  int32_t field = 0;
+  int64_t val = 0;
+  int32_t digits = 0;
+  bool all_digits = true;
+  bool leading_zero = false;
+  auto close_field = [&]() {
+    if (field <= max_seps) {
+      bool good = all_digits && digits >= 1 && digits <= 18 &&
+                  !(leading_zero && digits > 1);
+      v[field] = good ? val : 0;
+      ok[field] = good ? 1 : 0;
     }
-  });
+    val = 0;
+    digits = 0;
+    all_digits = true;
+    leading_zero = false;
+    ++field;
+  };
+  for (int32_t i = 0; i < n; ++i) {
+    uint8_t c = t[i];
+    if (sep_tab[c]) {
+      close_field();
+      if (ns < max_seps) {
+        sep_pos[ns] = i;
+        sep_chars[ns] = c;
+      }
+      ++ns;
+    } else if (c >= '0' && c <= '9') {
+      if (digits == 0 && c == '0') leading_zero = true;
+      if (digits < 19) val = val * 10 + (c - '0');
+      ++digits;
+    } else {
+      all_digits = false;
+    }
+  }
+  close_field();
+  return ns;
 }
+
+}  // namespace
 
 // Fixed-width MSB-first word packing (ops/transfer._pack_fixed_np twin):
 // word i = OR of v[j] << (32 - w*(j+1)) over its `per` values, where v is a
@@ -699,81 +695,6 @@ void phyngsc_byte_scan(const uint8_t *src, int64_t n, int64_t *out4) {
   }
 }
 
-// Numeric-field mode-planner statistics in ONE row-major pass over the
-// title scan's (R, F) value matrix (models/title._numeric_pre twin — the
-// numpy version pays ~6 strided passes; title analyze is on the compress
-// critical path, reference AnalyzeTitleFields tasks.cpp:63-143):
-// per field f: vmin/vmax, delta min/max, and per B-record block: const,
-// delta-const, first delta (0 when the block has < 2 records — matching the
-// pad-with-last-value semantics of the numpy path).
-void phyngsc_numeric_stats(const int64_t *V, int64_t R, int64_t F,
-                           int64_t stride,                   // row stride of V
-                           int64_t B,
-                           int64_t *vmin, int64_t *vmax,     // (F,)
-                           int64_t *dmin, int64_t *dmax,     // (F,)
-                           int64_t *first_d,                 // (nB, F)
-                           uint8_t *bconst, uint8_t *bdconst // (nB, F)
-) {
-  const int64_t nB = (R + B - 1) / B;
-  for (int64_t f = 0; f < F; ++f) {
-    vmin[f] = INT64_MAX; vmax[f] = INT64_MIN;
-    dmin[f] = INT64_MAX; dmax[f] = INT64_MIN;
-  }
-  // each chunk's per-field minima and maxima, four rows of F a chunk
-  const int k = phyngsc::chunk_count(nB, BLOCKS_GRAIN);
-  std::vector<int64_t> part(4 * (size_t)k * F);
-  phyngsc::parallel_chunks(nB, k, [&](int c, int64_t g0, int64_t g1) {
-    int64_t *lvmin = part.data() + 4 * (size_t)c * F, *lvmax = lvmin + F;
-    int64_t *ldmin = lvmax + F, *ldmax = ldmin + F;
-    for (int64_t f = 0; f < F; ++f) {
-      lvmin[f] = INT64_MAX; lvmax[f] = INT64_MIN;
-      ldmin[f] = INT64_MAX; ldmax[f] = INT64_MIN;
-    }
-    for (int64_t g = g0; g < g1; ++g) {
-      const int64_t r0 = g * B;
-      const int64_t r1 = std::min(r0 + B, R);
-      int64_t *fd = first_d + g * F;
-      uint8_t *bc = bconst + g * F;
-      uint8_t *bd = bdconst + g * F;
-      for (int64_t f = 0; f < F; ++f) {
-        fd[f] = 0;
-        bc[f] = 1;
-        bd[f] = (r1 - r0 >= 2) ? 1 : 0;
-      }
-      for (int64_t r = r0; r < r1; ++r) {
-        const int64_t *row = V + r * stride;
-        const int64_t *nxt = row + stride; // valid while r < R-1
-        for (int64_t f = 0; f < F; ++f) {
-          const int64_t v = row[f];
-          if (v < lvmin[f]) lvmin[f] = v;
-          if (v > lvmax[f]) lvmax[f] = v;
-          if (r + 1 < R) { // delta r->r+1 belongs to this block's rows
-            const int64_t d = nxt[f] - v;
-            if (d < ldmin[f]) ldmin[f] = d;
-            if (d > ldmax[f]) ldmax[f] = d;
-            if (r + 1 < r1) { // interior delta
-              if (r == r0) fd[f] = d;
-              else if (d != fd[f]) bd[f] = 0;
-              if (d != 0) bc[f] = 0;
-            }
-          }
-        }
-      }
-    }
-  });
-  for (int c = 0; c < k; ++c) {
-    const int64_t *lvmin = part.data() + 4 * (size_t)c * F;
-    const int64_t *lvmax = lvmin + F;
-    const int64_t *ldmin = lvmax + F, *ldmax = ldmin + F;
-    for (int64_t f = 0; f < F; ++f) {
-      if (lvmin[f] < vmin[f]) vmin[f] = lvmin[f];
-      if (lvmax[f] > vmax[f]) vmax[f] = lvmax[f];
-      if (ldmin[f] < dmin[f]) dmin[f] = ldmin[f];
-      if (ldmax[f] > dmax[f]) dmax[f] = ldmax[f];
-    }
-  }
-}
-
 // FASTQ text reassembly: per-record memcpy of title/seq/qual rows into the
 // output buffer at precomputed record offsets (twin of the decompressor's
 // subblock._reassemble scatter — the numpy fancy-indexing version builds
@@ -885,6 +806,594 @@ void phyngsc_title_assemble(int32_t F, const int32_t *kinds,
       while (c < TL) t[c++] = 0;
     }
   });
+}
+
+
+namespace {
+
+// The title model's constants (models/title.py).
+constexpr int64_t kTitleBlock = 32;    // BLOCK_RECORDS
+constexpr int32_t kTitleAlpha = 256;   // ALPHABET
+constexpr int64_t kMaxHufRange = 512;  // MAX_HUF_RANGE
+enum { kNumeric = 0, kChar = 1 };
+enum { kValue = 0, kDelta = 1, kBlock = 2, kHuf = 3 };
+enum { kBlkConst = 0, kBlkDelta = 1, kBlkRaw = 2 };
+
+int64_t bits_of(uint64_t x) { return x ? 64 - __builtin_clzll(x) : 0; }
+
+// One field's plan, title.NumericPlan or title.CharPlan.
+struct TitleField {
+  int64_t kind = kChar, mode = kValue, width = 0, base = 0, first = 0;
+  int64_t dwidth = 0, hsub = kValue, alpha = 0, huf_sing = -1;
+  int64_t max_len = 0, const_len = 0, len_width = 0;
+  std::vector<uint8_t> lens;       // char: (n_trees, 256); NUM_HUF: (alpha,)
+  std::vector<int32_t> sing;       // char: (n_trees,)
+  std::vector<uint8_t> flags;      // NUM_BLOCK: (nB,)
+  std::vector<uint64_t> blk_a, blk_d, blk_raw;
+  std::vector<uint8_t> blk_const;  // char in block mode: (nB,)
+  std::vector<uint32_t> codes;     // the canonical codes of `lens`
+};
+
+// Field f of title r: its bytes start at at(r, f) and run len(r, f).
+struct TitleSpans {
+  const uint8_t *titles;
+  int64_t TL;
+  const int32_t *tlens;
+  const int32_t *sep_pos;  // (R, ns)
+  int64_t ns, F;
+  int32_t start(int64_t r, int64_t f) const {
+    return f ? sep_pos[r * ns + f - 1] + 1 : 0;
+  }
+  const uint8_t *at(int64_t r, int64_t f) const {
+    return titles + r * TL + start(r, f);
+  }
+  int32_t len(int64_t r, int64_t f) const {
+    return (f + 1 < F ? sep_pos[r * ns + f] : tlens[r]) - start(r, f);
+  }
+};
+
+// huffman.build_code_lengths_batch and singleton_of_batch of T rows of A
+// counts; false, with the row's symbol count in *n_err, at the first row
+// whose alphabet cannot fit max_len bits (its ValueError).
+bool build_rows(const int64_t *counts, int64_t T, int32_t A, int32_t max_len,
+                uint8_t *lens, int32_t *sing, int64_t *n_err) {
+  for (int64_t t = 0; t < T; ++t) {
+    int64_t n = 0;
+    for (int32_t a = 0; a < A; ++a) n += counts[t * A + a] != 0;
+    if (n > 1 && n > (int64_t(1) << max_len)) {
+      *n_err = n;
+      return false;
+    }
+    huffman_one(counts + t * A, A, max_len, lens + t * A, &sing[t]);
+  }
+  return true;
+}
+
+// title._plan_numeric_block: the plan's exact bits, or -1 where the mode
+// does not apply.
+int64_t plan_block(const int64_t *v, int64_t R, int64_t vmin, int64_t width_v,
+                   TitleField *p) {
+  if (R < 2 || width_v == 0) return -1;
+  const int64_t nB = (R + kTitleBlock - 1) / kTitleBlock;
+  p->kind = kNumeric;
+  p->mode = kBlock;
+  p->width = width_v;
+  p->base = vmin;
+  p->flags.resize(nB);
+  p->blk_a.resize(nB);
+  p->blk_d.resize(nB);
+  uint64_t max_zz = 0;
+  int64_t n_delta = 0, n_paid = 0;  // delta blocks; values paid at width_v
+  for (int64_t g = 0; g < nB; ++g) {
+    const int64_t r0 = g * kTitleBlock;
+    const int64_t r1 = std::min(r0 + kTitleBlock, R);
+    bool same = true, steady = r1 - r0 >= 2;
+    const int64_t step = steady ? v[r0 + 1] - v[r0] : 0;
+    for (int64_t r = r0 + 1; r < r1; ++r) {
+      same = same && v[r] == v[r0];
+      steady = steady && v[r] - v[r - 1] == step;
+    }
+    const uint64_t zz = step < 0 ? ((uint64_t)(-step) << 1) - 1
+                                 : (uint64_t)step << 1;
+    p->blk_a[g] = (uint64_t)(v[r0] - vmin);
+    p->blk_d[g] = zz;
+    if (same) {
+      p->flags[g] = kBlkConst;
+      ++n_paid;
+    } else if (steady) {
+      p->flags[g] = kBlkDelta;
+      ++n_paid;
+      ++n_delta;
+      max_zz = std::max(max_zz, zz);
+    } else {
+      p->flags[g] = kBlkRaw;
+      n_paid += r1 - r0;
+      for (int64_t r = r0; r < r1; ++r)
+        p->blk_raw.push_back((uint64_t)(v[r] - vmin));
+    }
+  }
+  p->dwidth = n_delta ? std::max<int64_t>(1, bits_of(max_zz)) : 0;
+  return 2 * nB + width_v * n_paid + p->dwidth * n_delta + 87;
+}
+
+// A NUM_HUF tree over hist: its lengths and singleton in p, and the
+// payload's and the stored table's bits.
+int64_t huf_tree(const std::vector<int64_t> &hist, int32_t max_len,
+                 TitleField *p) {
+  const int32_t A = (int32_t)hist.size();
+  int32_t sing;
+  p->lens.resize(A);
+  huffman_one(hist.data(), A, max_len, p->lens.data(), &sing);
+  p->huf_sing = sing;
+  p->alpha = A;
+  int64_t bits = table_cost_bits(p->lens.data(), A, sing);
+  for (int32_t a = 0; a < A; ++a) bits += hist[a] * p->lens[a];
+  return bits;
+}
+
+// title._numeric_plan_from_values of R values: the mode of fewest exact
+// bits.
+void plan_numeric(const int64_t *v, int64_t R, int32_t max_len,
+                  TitleField *best) {
+  int64_t vmin = v[0], vmax = v[0];
+  for (int64_t r = 1; r < R; ++r) {
+    vmin = std::min(vmin, v[r]);
+    vmax = std::max(vmax, v[r]);
+  }
+  const int64_t width_v = vmax > vmin ? bits_of(vmax - vmin) : 0;
+  best->kind = kNumeric;
+  best->mode = kValue;
+  best->width = width_v;
+  best->base = vmin;
+  int64_t best_bits = 9 + 64 + R * width_v;
+  int64_t dmin = INT64_MAX, dmax = INT64_MIN;
+  for (int64_t r = 1; r < R; ++r) {
+    dmin = std::min(dmin, v[r] - v[r - 1]);
+    dmax = std::max(dmax, v[r] - v[r - 1]);
+  }
+  if (R >= 2) {
+    const int64_t width_d = dmax > dmin ? bits_of(dmax - dmin) : 0;
+    const int64_t bits_d = 9 + 128 + (R - 1) * width_d;
+    if (bits_d < best_bits) {
+      best->mode = kDelta;
+      best->width = width_d;
+      best->base = dmin;
+      best->first = v[0];
+      best_bits = bits_d;
+    }
+  }
+  TitleField cand;
+  const int64_t bits_b = plan_block(v, R, vmin, width_v, &cand);
+  if (bits_b >= 0 && bits_b < best_bits) {
+    *best = std::move(cand);
+    best_bits = bits_b;
+  }
+  // NUM_HUF: a shared tree over the values, or over the deltas (record 0
+  // emits symbol 0), where the range fits a Kraft-feasible alphabet
+  const int64_t cap = std::min<int64_t>(kMaxHufRange, int64_t(1) << max_len);
+  TitleField huf, hd;
+  int64_t bits_h = -1;
+  std::vector<int64_t> hist;
+  if (vmax - vmin + 1 >= 2 && vmax - vmin + 1 <= cap) {
+    hist.assign(vmax - vmin + 1, 0);
+    for (int64_t r = 0; r < R; ++r) ++hist[v[r] - vmin];
+    bits_h = huf_tree(hist, max_len, &huf) + 84;
+    huf.base = vmin;
+  }
+  if (R >= 2 && dmax - dmin + 1 >= 2 && dmax - dmin + 1 <= cap) {
+    hist.assign(dmax - dmin + 1, 0);
+    ++hist[0];
+    for (int64_t r = 1; r < R; ++r) ++hist[v[r] - v[r - 1] - dmin];
+    const int64_t bits = huf_tree(hist, max_len, &hd) + 148;
+    hd.hsub = kDelta;
+    hd.base = dmin;
+    hd.first = v[0];
+    if (bits_h < 0 || bits < bits_h) {
+      huf = std::move(hd);
+      bits_h = bits;
+    }
+  }
+  if (bits_h >= 0 && bits_h < best_bits) {
+    huf.kind = kNumeric;
+    huf.mode = kHuf;
+    huf.width = width_v;
+    *best = std::move(huf);
+  }
+}
+
+// title.plan_char of field f; false, with *n_err, where a tree's alphabet
+// cannot fit max_len bits.
+bool plan_char(const TitleSpans &sp, int64_t f, int64_t R, int32_t max_len,
+               int64_t max_positions, TitleField *p, int64_t *n_err) {
+  const int32_t A = kTitleAlpha;
+  int32_t W = 0;
+  const int32_t l0 = sp.len(0, f);
+  bool same_len = true;
+  for (int64_t r = 0; r < R; ++r) {
+    W = std::max(W, sp.len(r, f));
+    same_len = same_len && sp.len(r, f) == l0;
+  }
+  p->kind = kChar;
+  p->max_len = W;
+  const int64_t P = std::min<int64_t>(W, max_positions);
+  const int64_t T = P + (W > P ? 1 : 0);
+  p->lens.assign(T * A, 0);
+  p->sing.assign(T, -1);
+  const uint8_t *row0 = sp.at(0, f);
+  bool constant = W > 0 && same_len;
+  for (int64_t r = 1; constant && r < R; ++r)
+    constant = memcmp(sp.at(r, f), row0, l0) == 0;
+  if (constant) {
+    // every tracked position a zero-bit singleton; the overflow tree
+    // a singleton too where the tail's chars are all one
+    p->const_len = l0;
+    for (int64_t i = 0; i < P; ++i) p->sing[i] = row0[i];
+    if (W > P) {
+      std::vector<int64_t> counts(A, 0);
+      for (int64_t i = P; i < W; ++i) counts[row0[i]] += R;
+      if (std::count(counts.begin(), counts.end(), 0) == A - 1) {
+        p->sing[T - 1] = row0[P];
+      } else {
+        int32_t unused;
+        if (!build_rows(counts.data(), 1, A, max_len, &p->lens[(T - 1) * A],
+                        &unused, n_err))
+          return false;
+      }
+    }
+    return true;
+  }
+  // one tree a position up to max_positions, the rest on the overflow
+  // tree; the rows of `rep` alone where it is given
+  auto stats = [&](const uint8_t *rep, std::vector<int64_t> *counts) {
+    counts->assign(T * A, 0);
+    for (int64_t r = 0; r < R; ++r) {
+      if (rep && !rep[r]) continue;
+      const uint8_t *s = sp.at(r, f);
+      const int32_t n = sp.len(r, f);
+      for (int32_t i = 0; i < n; ++i)
+        ++(*counts)[std::min<int64_t>(i, T - 1) * A + s[i]];
+    }
+  };
+  auto emit_bits = [&](const std::vector<int64_t> &counts,
+                       const TitleField &t) {
+    int64_t bits = 0;
+    for (int64_t i = 0; i < T * A; ++i) bits += counts[i] * t.lens[i];
+    for (int64_t i = 0; i < T; ++i)
+      bits += table_cost_bits(&t.lens[i * A], A, t.sing[i]);
+    return bits;
+  };
+  std::vector<int64_t> counts;
+  stats(nullptr, &counts);
+  if (!build_rows(counts.data(), T, A, max_len, p->lens.data(),
+                  p->sing.data(), n_err))
+    return false;
+  p->const_len = same_len ? l0 : -1;
+  p->len_width = same_len ? 0 : std::max<int64_t>(1, bits_of(W));
+  // per-32-record block constancy, where it emits fewer exact bits: a
+  // block whose records hold the same bytes emits its first record's
+  if (R < 2 || W == 0) return true;
+  const int64_t nB = (R + kTitleBlock - 1) / kTitleBlock;
+  std::vector<uint8_t> blk(nB, 1);
+  for (int64_t r = 0; r < R; ++r) {
+    const int64_t r0 = r / kTitleBlock * kTitleBlock;
+    if (sp.len(r, f) != sp.len(r0, f) ||
+        memcmp(sp.at(r, f), sp.at(r0, f), sp.len(r, f)) != 0)
+      blk[r / kTitleBlock] = 0;
+  }
+  if (R % kTitleBlock == 1) blk[nB - 1] = 0;  // a block of one saves nothing
+  if (std::find(blk.begin(), blk.end(), 1) == blk.end()) return true;
+  std::vector<uint8_t> rep(R);
+  for (int64_t r = 0; r < R; ++r)
+    rep[r] = !blk[r / kTitleBlock] || r % kTitleBlock == 0;
+  std::vector<int64_t> counts_b;
+  stats(rep.data(), &counts_b);
+  TitleField b;
+  b.lens.resize(T * A);
+  b.sing.resize(T);
+  if (!build_rows(counts_b.data(), T, A, max_len, b.lens.data(),
+                  b.sing.data(), n_err))
+    return false;
+  if (emit_bits(counts_b, b) + nB + 16 < emit_bits(counts, *p)) {
+    p->lens.swap(b.lens);
+    p->sing.swap(b.sing);
+    p->blk_const.swap(blk);
+  }
+  return true;
+}
+
+// Writes the len low bits of code MSB first at bit off of words.
+inline void put_code(uint32_t *words, int64_t off, uint32_t code, int64_t len) {
+  if (len == 0) return;
+  const int64_t w = off >> 5;
+  const int64_t room = 32 - (off & 31);
+  if (len <= room) {
+    words[w] |= code << (room - len);
+  } else {
+    words[w] |= code >> (len - room);
+    words[w + 1] |= code << (32 - (len - room));
+  }
+}
+
+// The columns of the per-field matrix phyngsc_title_encode returns
+// (utils/native.py TITLE_COLUMNS names them).
+constexpr int kTitleCols = 16;
+
+}  // namespace
+
+// What phyngsc_title_encode gives: counts, and arrays that its handle owns
+// until phyngsc_title_free.
+struct TitleEncoded {
+  int64_t error;  // > 0: an alphabet of this many symbols cannot fit
+  int64_t n_seps, n_fields, n_trees, n_huf, n_blocks, n_raw, n_bconst;
+  int64_t n_fixed, n_char, n_sub;
+  const uint8_t *seps;          // (n_seps,): n_fields - 1
+  const int64_t *fields;        // (n_fields, kTitleCols)
+  const uint8_t *tree_lens;     // (n_trees, 256): the char fields' trees
+  const int32_t *tree_sing;     // (n_trees,)
+  const uint8_t *huf_lens;      // (n_huf,): the NUM_HUF trees
+  const uint8_t *blk_flags;     // (n_blocks,): the NUM_BLOCK fields'
+  const uint64_t *blk_a;        // (n_blocks,)
+  const uint64_t *blk_d;        // (n_blocks,)
+  const uint64_t *blk_raw;      // (n_raw,)
+  const uint8_t *blk_const;     // (n_bconst,): the char fields'
+  const uint32_t *fixed_words;  // (n_fixed,)
+  const uint32_t *char_words;   // (n_char,)
+  const int32_t *sub_n_words;   // (n_sub,)
+};
+
+namespace {
+
+struct TitleResult {  // the arrays a TitleEncoded points into
+  std::vector<uint8_t> seps, tree_lens, huf_lens, blk_flags, blk_const;
+  std::vector<int64_t> fields;
+  std::vector<int32_t> tree_sing, sub_n_words;
+  std::vector<uint64_t> blk_a, blk_d, blk_raw;
+  std::vector<uint32_t> fixed_words, char_words;
+};
+
+}  // namespace
+
+// The title stream's whole encode (models/title.py encode, whose numpy
+// version PHYNGSC_NO_NATIVE=1 selects), decision for decision: the field
+// schema of TitleContext.build (the raw single field where titles
+// disagree on their separators), each field's plan (analyze), the fixed
+// stream's words, and the char stream's words and substream word counts as
+// substream_layout_np and pack_bits_scatter_np lay them out at G records a
+// substream over Rp rows. titles: (R, TL), R >= 1. Fills *out and returns
+// the handle that owns its arrays, for phyngsc_title_free; out->error > 0
+// where a tree's alphabet cannot fit max_code_len bits (huffman's
+// ValueError).
+void *phyngsc_title_encode(const uint8_t *titles, const int32_t *tlens,
+                           int64_t R, int64_t TL, const uint8_t *sep_tab,
+                           int32_t max_code_len, int64_t max_positions,
+                           int64_t G, int64_t Rp, TitleEncoded *out) {
+  TitleResult *res = new TitleResult;
+  memset(out, 0, sizeof(*out));
+  // the schema: every title's separators, as many as the first title's
+  // and the same chars; each chunk of titles notes where one disagrees
+  // and which fields are not numeric in one of its titles
+  int32_t ns = 0;
+  for (int32_t i = 0; i < tlens[0]; ++i) ns += sep_tab[titles[i]] != 0;
+  std::unique_ptr<int32_t[]> sep_pos(new int32_t[R * ns]);
+  std::unique_ptr<int64_t[]> values(new int64_t[R * (ns + 1)]);  // (F, R)
+  std::vector<uint8_t> seps(ns), ok0(ns + 1);
+  std::vector<int64_t> v0(ns + 1);
+  scan_title(titles, tlens[0], sep_tab, ns, sep_pos.get(), seps.data(),
+             v0.data(), ok0.data());
+  const int k = phyngsc::chunk_count(R, ROWS_GRAIN);
+  // a chunk's row: the schema held, then each field numeric throughout
+  std::vector<uint8_t> held((size_t)k * (ns + 2), 1);
+  phyngsc::parallel_chunks(R, k, [&](int c, int64_t r0, int64_t r1) {
+    std::vector<uint8_t> chars(ns), ok(ns + 1);
+    std::vector<int64_t> v(ns + 1);
+    uint8_t *h = &held[(size_t)c * (ns + 2)];
+    for (int64_t r = r0; r < r1; ++r) {
+      h[0] &= scan_title(titles + r * TL, tlens[r], sep_tab, ns,
+                         sep_pos.get() + r * ns, chars.data(), v.data(),
+                         ok.data()) == ns &&
+              std::equal(chars.begin(), chars.end(), seps.begin());
+      for (int32_t f = 0; f <= ns; ++f) {
+        h[f + 1] &= ok[f];
+        values[f * R + r] = v[f];
+      }
+    }
+  });
+  bool fields_ok = true;
+  std::vector<uint8_t> numeric(ns + 1, 1);
+  for (int c = 0; c < k; ++c) {
+    const uint8_t *h = &held[(size_t)c * (ns + 2)];
+    fields_ok = fields_ok && h[0];
+    for (int32_t f = 0; f <= ns; ++f) numeric[f] &= h[f + 1];
+  }
+  const int64_t F = fields_ok ? ns + 1 : 1;
+  // the raw field: one whole-title char field (its titles hold separators,
+  // so it is never numeric)
+  if (!fields_ok) numeric[0] = 0;
+  const TitleSpans sp{titles, TL, tlens, sep_pos.get(), fields_ok ? ns : 0,
+                      F};
+  // the fields' plans, split over the pool where the sub-block is large;
+  // the first field in order whose tree cannot fit raises
+  std::vector<TitleField> plans(F);
+  std::vector<const int64_t *> vals(F);  // a numeric field's R values
+  std::vector<int64_t> n_err(F, 0);
+  phyngsc::parallel_for(F, std::max<int64_t>(1, 16 * ROWS_GRAIN / R),
+                        [&](int, int64_t f0, int64_t f1) {
+    for (int64_t f = f0; f < f1; ++f) {
+      TitleField &p = plans[f];
+      if (numeric[f]) {
+        vals[f] = values.get() + f * R;
+        plan_numeric(vals[f], R, max_code_len, &p);
+      } else {
+        plan_char(sp, f, R, max_code_len, max_positions, &p, &n_err[f]);
+      }
+    }
+  });
+  for (int64_t f = 0; f < F; ++f) {
+    if (n_err[f]) {
+      out->error = n_err[f];
+      return res;
+    }
+  }
+  // the fixed stream: each record's numeric chunks and variable field
+  // lengths at one stride
+  int64_t stride = 0;
+  for (const TitleField &p : plans) {
+    if (p.kind == kNumeric && (p.mode == kValue || p.mode == kDelta))
+      stride += p.width;
+    else if (p.kind == kChar && p.const_len < 0)
+      stride += p.len_width;
+  }
+  res->fixed_words.assign((R * stride + 31) / 32, 0);
+  // 32 records a group: each group's bits start on a word of their own
+  phyngsc::parallel_for((R + 31) / 32, ROWS_GRAIN / 32,
+                        [&](int, int64_t g0, int64_t g1) {
+    uint32_t *words = res->fixed_words.data();
+    for (int64_t r = g0 * 32; r < std::min(g1 * 32, R); ++r) {
+      int64_t off = r * stride;
+      for (int64_t f = 0; f < F; ++f) {
+        const TitleField &p = plans[f];
+        if (p.kind == kChar) {
+          if (p.const_len < 0) {
+            put_code(words, off, sp.len(r, f), p.len_width);
+            off += p.len_width;
+          }
+          continue;
+        }
+        if (p.width == 0 || (p.mode != kValue && p.mode != kDelta)) continue;
+        const int64_t *v = vals[f];
+        const uint64_t enc = p.mode == kValue ? v[r] - p.base
+                             : r ? v[r] - v[r - 1] - p.base : 0;
+        // chunk_widths: the top width - 16 (n - 1) bits, then 16 at a time
+        for (int64_t left = p.width; left > 0;) {
+          const int64_t w = left - 16 * ((left - 1) / 16);
+          left -= w;
+          put_code(words, off, (uint32_t)((enc >> left) & ((1u << w) - 1)),
+                   w);
+          off += w;
+        }
+      }
+    }
+  });
+  // the char stream: the walk trees' canonical codes, then each record's
+  // symbols in field order (a NUM_HUF field's one, a char field's bytes
+  // where its block emits them), each substream from a word of its own
+  std::vector<int64_t> walk;
+  for (int64_t f = 0; f < F; ++f) {
+    TitleField &p = plans[f];
+    if (p.kind == kNumeric ? p.mode != kHuf
+        : p.max_len == 0 ||
+          (p.const_len >= 0 &&
+           std::all_of(p.sing.begin(), p.sing.end(),
+                       [](int32_t s) { return s >= 0; })))
+      continue;
+    walk.push_back(f);
+    p.codes.resize(p.lens.size());
+    const int32_t A = p.kind == kChar ? kTitleAlpha : (int32_t)p.alpha;
+    for (size_t t = 0; t < p.lens.size(); t += A)
+      canonical_row(&p.lens[t], A, max_code_len, &p.codes[t]);
+  }
+  auto record = [&](int64_t r, auto &&emit) {
+    for (int64_t f : walk) {
+      const TitleField &p = plans[f];
+      if (p.kind == kNumeric) {
+        const int64_t *v = vals[f];
+        const int64_t s = p.hsub == kValue ? v[r] - p.base
+                          : r ? v[r] - v[r - 1] - p.base : 0;
+        emit(p.codes[s], p.lens[s]);
+        continue;
+      }
+      if (!p.blk_const.empty() && p.blk_const[r / kTitleBlock] &&
+          r % kTitleBlock)
+        continue;  // a constant block's records after its first
+      const uint8_t *s = sp.at(r, f);
+      const int32_t n = sp.len(r, f);
+      const int64_t last = (int64_t)p.sing.size() - 1;
+      for (int32_t i = 0; i < n; ++i) {
+        const int64_t k = std::min<int64_t>(i, last) * kTitleAlpha + s[i];
+        emit(p.codes[k], p.lens[k]);
+      }
+    }
+  };
+  const int64_t S = Rp / G;
+  res->sub_n_words.assign(S, 0);
+  std::vector<int64_t> sub_start(S + 1, 0);
+  if (!walk.empty()) {
+    std::vector<int64_t> bits(S, 0);
+    phyngsc::parallel_for(S, ROWS_GRAIN / G + 1, [&](int, int64_t s0,
+                                                     int64_t s1) {
+      for (int64_t s = s0; s < s1; ++s)
+        for (int64_t r = s * G; r < std::min((s + 1) * G, R); ++r)
+          record(r, [&](uint32_t, int64_t len) { bits[s] += len; });
+    });
+    for (int64_t s = 0; s < S; ++s) {
+      res->sub_n_words[s] = (int32_t)((bits[s] + 31) / 32);
+      sub_start[s + 1] = sub_start[s] + res->sub_n_words[s];
+    }
+  }
+  res->char_words.assign(sub_start[S], 0);
+  if (sub_start[S]) {
+    phyngsc::parallel_for(S, ROWS_GRAIN / G + 1, [&](int, int64_t s0,
+                                                     int64_t s1) {
+      uint32_t *words = res->char_words.data();
+      for (int64_t s = s0; s < s1; ++s) {
+        int64_t off = sub_start[s] * 32;
+        for (int64_t r = s * G; r < std::min((s + 1) * G, R); ++r)
+          record(r, [&](uint32_t code, int64_t len) {
+            put_code(words, off, code, len);
+            off += len;
+          });
+      }
+    });
+  }
+  // the plans, flat
+  if (fields_ok) res->seps.swap(seps);
+  for (const TitleField &p : plans) {
+    const int64_t row[kTitleCols] = {
+        p.kind, p.mode, p.width, p.base, p.first, p.dwidth, p.hsub, p.alpha,
+        p.huf_sing, p.max_len, p.const_len, p.len_width,
+        (int64_t)p.sing.size(), (int64_t)p.flags.size(),
+        (int64_t)p.blk_raw.size(), (int64_t)p.blk_const.size()};
+    res->fields.insert(res->fields.end(), row, row + kTitleCols);
+    auto &lens = p.kind == kChar ? res->tree_lens : res->huf_lens;
+    lens.insert(lens.end(), p.lens.begin(), p.lens.end());
+    res->tree_sing.insert(res->tree_sing.end(), p.sing.begin(), p.sing.end());
+    res->blk_flags.insert(res->blk_flags.end(), p.flags.begin(),
+                          p.flags.end());
+    res->blk_a.insert(res->blk_a.end(), p.blk_a.begin(), p.blk_a.end());
+    res->blk_d.insert(res->blk_d.end(), p.blk_d.begin(), p.blk_d.end());
+    res->blk_raw.insert(res->blk_raw.end(), p.blk_raw.begin(),
+                        p.blk_raw.end());
+    res->blk_const.insert(res->blk_const.end(), p.blk_const.begin(),
+                          p.blk_const.end());
+  }
+  out->n_seps = (int64_t)res->seps.size();
+  out->n_fields = F;
+  out->n_trees = (int64_t)res->tree_sing.size();
+  out->n_huf = (int64_t)res->huf_lens.size();
+  out->n_blocks = (int64_t)res->blk_flags.size();
+  out->n_raw = (int64_t)res->blk_raw.size();
+  out->n_bconst = (int64_t)res->blk_const.size();
+  out->n_fixed = (int64_t)res->fixed_words.size();
+  out->n_char = (int64_t)res->char_words.size();
+  out->n_sub = S;
+  out->seps = res->seps.data();
+  out->fields = res->fields.data();
+  out->tree_lens = res->tree_lens.data();
+  out->tree_sing = res->tree_sing.data();
+  out->huf_lens = res->huf_lens.data();
+  out->blk_flags = res->blk_flags.data();
+  out->blk_a = res->blk_a.data();
+  out->blk_d = res->blk_d.data();
+  out->blk_raw = res->blk_raw.data();
+  out->blk_const = res->blk_const.data();
+  out->fixed_words = res->fixed_words.data();
+  out->char_words = res->char_words.data();
+  out->sub_n_words = res->sub_n_words.data();
+  return res;
+}
+
+void phyngsc_title_free(void *handle) {
+  delete static_cast<TitleResult *>(handle);
 }
 
 }  // extern "C"

@@ -100,7 +100,9 @@ def _add(key: str, value: float) -> None:
 
 #: event counts beside the stage sink, set with it by the compress driver
 #: (else None): q_tables.native (sub-blocks whose quality table search ran
-#: in the host runtime), q_tables.candidates (the table sets it built).
+#: in the host runtime), q_tables.candidates (the table sets it built),
+#: t_encode.native (sub-blocks whose titles the host runtime encoded in
+#: one call).
 #: They stay out of _add, whose every label is seconds.
 COUNTS = None
 
@@ -669,6 +671,7 @@ def stage_b(a: _StageA, cfg: CodecConfig, codec=None,
     with timed_span("b.title", wait=a.t_future is not None):
         st.t_enc = (a.t_future.result() if a.t_future is not None
                     else title.encode(a.titles_np, a.tlens_np, cfg))
+    _count("t_encode.native", int(st.t_enc.native))
     return st
 
 

@@ -48,8 +48,6 @@ def _signatures() -> dict:
                   ctypes.c_int]),
         "phyngsc_gather": (None, [vp, i64, i64p, i32p, i64, i64, vp]),
         "phyngsc_huffman_lengths": (None, [i64p, i32, i32, i32, vp, i32p]),
-        "phyngsc_title_scan": (
-            None, [vp, i32p, i64, i64, vp, i32, i32p, i32p, vp, i64p, vp]),
         "phyngsc_fastq_assemble": (
             None, [vp, i32p, i64, vp, vp, i32p, i64, i64p, i64, vp]),
         "phyngsc_title_walk": (
@@ -66,14 +64,42 @@ def _signatures() -> dict:
             None, [vp, vp, i64, i32, i32, i32, i32, vp, vp, vp, vp]),
         "phyngsc_find_non_acgt": (i64, [vp, i64, i64, vp]),
         "phyngsc_byte_scan": (None, [vp, i64, i64p]),
-        "phyngsc_numeric_stats": (
-            None, [i64p, i64, i64, i64, i64, i64p, i64p, i64p, i64p, i64p,
-                   vp, vp]),
         "phyngsc_unpack_substreams": (
             None, [vp, i64, i64p, i64, i32p, i32, i32p, vp, i64, i32p]),
         "phyngsc_quality_tables": (
             i32, [i64p, i32, i32, i32, i32, vp, vp, i32p, i64p]),
+        "phyngsc_title_encode": (
+            vp, [vp, i32p, i64, i64, vp, i32, i64, i64, i64,
+                 ctypes.POINTER(_TitleEncoded)]),
+        "phyngsc_title_free": (None, [vp]),
     }
+
+
+#: the columns of title_encode's per-field matrix, in order
+TITLE_COLUMNS = ("kind", "mode", "width", "base", "first", "dwidth", "hsub",
+                 "alpha", "huf_sing", "max_len", "const_len", "len_width",
+                 "n_trees", "n_blocks", "n_raw", "n_bconst")
+#: title_encode's arrays: (name, the TitleEncoded field of its rows,
+#: dtype, the row's width)
+_TITLE_ARRAYS = (
+    ("seps", "n_seps", np.uint8, 1),
+    ("fields", "n_fields", np.int64, len(TITLE_COLUMNS)),
+    ("tree_lens", "n_trees", np.uint8, 256),
+    ("tree_sing", "n_trees", np.int32, 1), ("huf_lens", "n_huf", np.uint8, 1),
+    ("blk_flags", "n_blocks", np.uint8, 1),
+    ("blk_a", "n_blocks", np.uint64, 1), ("blk_d", "n_blocks", np.uint64, 1),
+    ("blk_raw", "n_raw", np.uint64, 1), ("blk_const", "n_bconst", np.uint8, 1),
+    ("fixed_words", "n_fixed", np.uint32, 1),
+    ("char_words", "n_char", np.uint32, 1),
+    ("sub_n_words", "n_sub", np.int32, 1))
+
+
+class _TitleEncoded(ctypes.Structure):
+    """host_runtime.cpp's TitleEncoded."""
+    _fields_ = ([(n, ctypes.c_int64) for n in (
+        "error", "n_seps", "n_fields", "n_trees", "n_huf", "n_blocks",
+        "n_raw", "n_bconst", "n_fixed", "n_char", "n_sub")]
+        + [(name, ctypes.c_void_p) for name, _, _, _ in _TITLE_ARRAYS])
 
 
 def _bind(path: str) -> None:
@@ -162,39 +188,6 @@ def gather(buf: np.ndarray, starts: np.ndarray, lens: np.ndarray,
         out.ctypes.data,
     )
     return out
-
-
-def title_scan(titles: np.ndarray, tlens: np.ndarray, separators: bytes,
-               max_seps: int = 31):
-    """Single-pass tokenize + numeric parse. Returns dict with nsep (R,),
-    sep_pos/sep_chars (R, max_seps), values/numeric_ok (R, max_seps+1),
-    or None when the native lib is unavailable."""
-    lib = _load()
-    if lib is None:
-        return None
-    titles = np.ascontiguousarray(titles, dtype=np.uint8)
-    tlens = np.ascontiguousarray(tlens, dtype=np.int32)
-    R, TL = titles.shape
-    sep_tab = np.zeros(256, np.uint8)
-    for c in separators:
-        sep_tab[c] = 1
-    # np.empty, not zeros: consumers only read sep_pos/chars[:, :nsep] and
-    # values/numeric_ok[:, :nsep+1], all of which the scan writes (zeroing
-    # these (R, 32) planes cost more than the scan itself at 64K records)
-    nsep = np.empty(R, np.int32)
-    sep_pos = np.empty((R, max_seps), np.int32)
-    sep_chars = np.empty((R, max_seps), np.uint8)
-    values = np.empty((R, max_seps + 1), np.int64)
-    numeric_ok = np.empty((R, max_seps + 1), np.uint8)
-    i32p = ctypes.POINTER(ctypes.c_int32)
-    lib.phyngsc_title_scan(
-        titles.ctypes.data, tlens.ctypes.data_as(i32p), R, TL,
-        sep_tab.ctypes.data, max_seps,
-        nsep.ctypes.data_as(i32p), sep_pos.ctypes.data_as(i32p),
-        sep_chars.ctypes.data, _i64p(values), numeric_ok.ctypes.data,
-    )
-    return {"nsep": nsep, "sep_pos": sep_pos, "sep_chars": sep_chars,
-            "values": values, "numeric_ok": numeric_ok.astype(bool)}
 
 
 #: phyngsc_pack_fixed transform codes (ops/transfer pack modes)
@@ -292,38 +285,6 @@ def byte_scan(src: np.ndarray):
     lib.phyngsc_byte_scan(src.ctypes.data, src.size, _i64p(out))
     return {"n_non_acgt": int(out[0]), "n_N": int(out[1]),
             "n_ge128": int(out[2]), "n_non_q6": int(out[3])}
-
-
-def numeric_stats(V: np.ndarray, B: int):
-    """One-pass numeric-field planner statistics over the (R, F) title
-    value matrix (twin of models/title._numeric_pre's numpy reductions).
-    Returns dict or None when unavailable. Requires R >= 2."""
-    lib = _load()
-    if lib is None or not hasattr(lib, "phyngsc_numeric_stats"):
-        return None
-    V = np.asarray(V, dtype=np.int64)
-    R, F = V.shape
-    # accept a leading-column SLICE of the title scan's value matrix
-    # without copying: the kernel walks rows by an explicit stride
-    if V.strides[1] != 8:
-        V = np.ascontiguousarray(V)
-    stride = V.strides[0] // 8
-    nB = (R + B - 1) // B
-    vmin = np.empty(F, np.int64)
-    vmax = np.empty(F, np.int64)
-    dmin = np.empty(F, np.int64)
-    dmax = np.empty(F, np.int64)
-    first_d = np.empty((nB, F), np.int64)
-    bconst = np.empty((nB, F), np.uint8)
-    bdconst = np.empty((nB, F), np.uint8)
-    lib.phyngsc_numeric_stats(
-        _i64p(V), R, F, stride, B, _i64p(vmin), _i64p(vmax), _i64p(dmin),
-        _i64p(dmax), _i64p(first_d), bconst.ctypes.data,
-        bdconst.ctypes.data,
-    )
-    return {"vmin": vmin, "vmax": vmax, "dmin": dmin, "dmax": dmax,
-            "first_d": first_d, "const": bconst.astype(bool),
-            "dconst": bdconst.astype(bool)}
 
 
 def unpack_substreams(words: np.ndarray, sub_word_start: np.ndarray,
@@ -491,3 +452,39 @@ def quality_tables(counts: np.ndarray, max_code_len: int, version: int):
                          f"{max_code_len}-bit codes")
     T = int(info[0])
     return lens[:T], codes[:T], singles[:T], int(info[1]), int(info[2])
+
+
+def title_encode(titles: np.ndarray, tlens: np.ndarray, separators: bytes,
+                 max_code_len: int, max_stat_positions: int, G: int,
+                 Rp: int) -> Optional[dict]:
+    """The title stream's whole encode in one call (models/title.py
+    encode) of R >= 1 titles: a dict of its arrays (_TITLE_ARRAYS; rows of
+    `fields` are TITLE_COLUMNS), or None. Raises huffman's ValueError
+    where an alphabet cannot fit max_code_len bits."""
+    lib = _load()
+    if lib is None:
+        return None
+    titles = np.ascontiguousarray(titles, dtype=np.uint8)
+    tlens = np.ascontiguousarray(tlens, dtype=np.int32)
+    R, TL = titles.shape
+    sep_tab = np.zeros(256, np.uint8)
+    sep_tab[np.frombuffer(separators, np.uint8)] = 1
+    out = _TitleEncoded()
+    handle = lib.phyngsc_title_encode(
+        titles.ctypes.data, tlens.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        R, TL, sep_tab.ctypes.data, max_code_len, max_stat_positions, G, Rp,
+        ctypes.byref(out))
+    try:
+        if out.error:
+            raise ValueError(f"alphabet of {out.error} symbols cannot fit "
+                             f"{max_code_len}-bit codes")
+        got = {}
+        for name, rows, dtype, width in _TITLE_ARRAYS:
+            nbytes = getattr(out, rows) * width * np.dtype(dtype).itemsize
+            a = (np.frombuffer((ctypes.c_char * nbytes).from_address(
+                getattr(out, name)), dtype).copy() if nbytes
+                else np.zeros(0, dtype))
+            got[name] = a.reshape(-1, width) if width > 1 else a
+        return got
+    finally:
+        lib.phyngsc_title_free(handle)

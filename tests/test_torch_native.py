@@ -4,9 +4,10 @@ build/host/) against the JAX package's OpenMP build of
 native/host_runtime.cpp (through phyngsc_tpu.utils.native) and against the
 port's numpy versions.
 
-Each of the 14 entry points is reached through the port's code that calls
-it (a stage: the gathers, the wire's packers, the table build, the title
-codec, the decode's tail, the reassembly), on seeded inputs of 0, 1, 127
+Each of the 12 entry points that the JAX package's runtime shares is
+reached through the port's code that calls it (a stage: the gathers, the
+wire's packers, the table build, the title decode, the decode's tail, the
+reassembly), on seeded inputs of 0, 1, 127
 and 65,537 items and on one ERR005195 sub-block's: the stage's output at 1,
 2, 3 and 8 threads equals its output under PHYNGSC_NO_NATIVE=1 (the numpy
 versions), and every call the stage made into the port's runtime gives
@@ -34,7 +35,7 @@ from phyngsc_tpu_torch.config import CodecConfig
 from phyngsc_tpu_torch.models import quality, title
 from phyngsc_tpu_torch.ops import transfer
 from phyngsc_tpu_torch.pipeline import compress, subblock
-from phyngsc_tpu_torch.utils import bitio, fastq
+from phyngsc_tpu_torch.utils import fastq
 from phyngsc_tpu_torch.utils import native
 
 from torch_time_limit import time_limit
@@ -121,12 +122,6 @@ class Scenario:
             np.add.at(self.hist, (rng.integers(0, 36, size=size), sym), 1)
         with _no_native():
             self.enc = title.encode(self.titles, self.tlens, CFG) if R else None
-        # numeric_stats' input: a column slice (rows strided past F) of a
-        # value matrix shaped like the title scan's
-        self.V = np.stack([self.tlens.astype(np.int64),
-                           np.arange(R, dtype=np.int64) * 3 + 7,
-                           self.lens.astype(np.int64) * (np.arange(R) // 40),
-                           np.full(R, 5, np.int64)], axis=1)[:, :3]
 
 
 @functools.lru_cache(maxsize=None)
@@ -142,14 +137,10 @@ def st_index_records(sc):
 
 
 def st_gather(sc):
-    out = [subblock._gather_matrix(sc.buf, sc.idx.seq_start,
-                                   sc.lens.astype(np.int64), sc.L),
-           subblock._gather_matrix(sc.buf, sc.idx.title_start,
-                                   sc.tlens.astype(np.int64), sc.TL)]
-    if sc.R:  # the title codec's field contents
-        ctx = title.TitleContext.build(sc.titles, sc.tlens)
-        out += [ctx.content(f) for f in range(ctx.tok.n_fields)]
-    return out
+    return [subblock._gather_matrix(sc.buf, sc.idx.seq_start,
+                                    sc.lens.astype(np.int64), sc.L),
+            subblock._gather_matrix(sc.buf, sc.idx.title_start,
+                                    sc.tlens.astype(np.int64), sc.TL)]
 
 
 def st_gather3(sc):
@@ -186,27 +177,6 @@ def st_unpack_substreams(sc):
     with pytest.MonkeyPatch.context() as m:
         m.setattr(native, "title_walk", lambda *a, **k: None)
         return _titles_out(sc)
-
-
-def st_title_scan(sc):
-    if not sc.R:
-        return []
-    enc = title.encode(sc.titles, sc.tlens, CFG)
-    bw = bitio.BitWriter()
-    title.write_header(bw, enc)
-    bw.flush()
-    return [bw.getvalue(), enc.fixed_words, enc.char_words,
-            enc.char_sub_n_words]
-
-
-def st_numeric_stats(sc):
-    """title._numeric_pre (which takes the runtime from two records on)."""
-    if not sc.R:
-        return []
-    pre = title._numeric_pre(sc.V)
-    return [getattr(pre, k, None) for k in
-            ("vmin", "vmax", "dmin", "dmax", "const", "dconst", "first_d",
-             "nB", "cnt", "blocks")]
 
 
 def st_packers(sc):
@@ -286,19 +256,17 @@ def st_fastq_assemble(sc):
 STAGES = {
     "index_records": st_index_records, "gather": st_gather,
     "gather3": st_gather3, "huffman_lengths": st_huffman_lengths,
-    "unpack_substreams": st_unpack_substreams, "title_scan": st_title_scan,
+    "unpack_substreams": st_unpack_substreams,
     "pack_fixed": st_pack_fixed, "decode_tail": st_decode_tail,
     "find_non_acgt": st_find_non_acgt, "byte_scan": st_packers,
-    "numeric_stats": st_numeric_stats, "fastq_assemble": st_fastq_assemble,
+    "fastq_assemble": st_fastq_assemble,
     "title_walk": _titles_out, "title_assemble": _titles_out,
 }
 
 
 def _direct_call(name, sc):
     """The entry point's arguments where its caller does not reach it: at
-    no items, and numeric_stats below two records."""
-    if name == "numeric_stats" and sc.R < 2:
-        return sc.V, 32
+    no items."""
     if sc.R:
         return None
     u8, i32, i64 = (np.zeros(0, t) for t in (np.uint8, np.int32, np.int64))
@@ -310,7 +278,6 @@ def _direct_call(name, sc):
                               np.zeros((1, 4096), np.int32),
                               np.zeros((0, 3), np.int32),
                               np.zeros((0, 3), np.uint8), 3, 12),
-        "title_scan": (np.zeros((0, 1), np.uint8), i32, title.SEPARATORS),
         "fastq_assemble": (np.zeros((0, 1), np.uint8), i32,
                            np.zeros((0, 1), np.uint8),
                            np.zeros((0, 1), np.uint8), i32, i64, 0),
@@ -384,21 +351,7 @@ def test_runtime_is_the_jax_runtime_and_the_numpy_versions(threads, name,
                if name != "find_non_acgt"), f"{name} answered None"
     for args, kwargs, res in calls:
         want = getattr(jnative, name)(*args, **kwargs)
-        if name == "title_scan":  # what the scan writes (title.py reads)
-            res, want = _scanned(res), _scanned(want)
         assert _same(res, want), name
-
-
-def _scanned(scan: dict) -> dict:
-    """title_scan's outputs with the cells it does not write zeroed: past
-    each row's separators, and past its fields."""
-    ns = scan["nsep"][:, None]
-    out = dict(scan)
-    for k, n in (("sep_pos", ns), ("sep_chars", ns), ("values", ns + 1),
-                 ("numeric_ok", ns + 1)):
-        cols = np.arange(scan[k].shape[1])[None, :]
-        out[k] = np.where(cols < n, scan[k], 0)
-    return out
 
 
 def _concurrent_work(sc, i):

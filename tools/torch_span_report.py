@@ -25,7 +25,7 @@ with their threads, and prints its result line, then one JSON line of:
   FASTQ and in all;
 - counters: per kind, over the same calls: the sub-blocks (stage_b
   spans) and the sums of the program's event counts (subblock._count:
-  q_tables.native, q_tables.candidates).
+  q_tables.native, q_tables.candidates, t_encode.native).
 
 --out also writes that JSON to FILE. Needs a CUDA card for the device
 numbers; on the CPU (--device cpu, --tiny) it runs at a small size.
